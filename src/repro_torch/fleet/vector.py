@@ -1,0 +1,1004 @@
+"""Vectorized fleet rollouts: the fused latency–cost frontier engine in PyTorch.
+
+Counterpart of `repro.fleet.vector`.  In the gang-aligned regime (capacity
+c·n task slots split into c gang blocks) a fleet is a FIFO G/G/c queue
+whose per-job service time is the single-job makespan T(π) and whose
+per-job cost is C(π).  The engine evaluates a whole (λ × π [× q]) grid on
+one shared set of common-random-number draws:
+
+  draws → single-job (T, C) per cell → queue per (cell, trial) → stats
+
+  * `masked_single_fork` evaluates single-fork cells with a dynamic fork
+    point (k, r, keep enter as per-cell tensors, not shapes);
+    `core.simulate.lowered_eval_cells` evaluates any other lowered policy;
+  * `batched_queue` runs every (cell, trial) queue: c > 1 (or
+    `kernel=True`) through the CUDA Kiefer–Wolfowitz kernel
+    `kernels.kw_queue`, c = 1 through the closed-form `lindley`;
+  * `trace_kill_rollout` draws π_kill residuals through the CUDA kernel
+    `kernels.residual_sampler` (eq. (7): F̄_Y = F̄_X^{r+1}).
+
+Where JAX fused the vmap over cells under XLA, this module writes the cell
+axis out and evaluates cells in chunks sized to a fixed memory budget
+(`CELL_CHUNK_BYTES`), all over the ONE shared draw set; the chunk size does
+not change any result.  Cell padding (`pad_cells`) existed in JAX only to
+avoid recompiles: the port evaluates only the real cells and keeps the
+argument for signature parity.  `r_cap` still sets the fresh-draw width,
+so it changes the random stream exactly as in the reference.
+
+Every entry point takes `seed` in place of JAX's `key` and `device=None`
+(the card; pass `device="cpu"` for the plain PyTorch path).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from functools import partial
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.distributions import Distribution, Empirical
+from ..core.policy import SingleForkPolicy, lower_policies, num_stragglers
+from ..core.simulate import (
+    _cell,
+    lowered_eval_cells,
+    policy_draws,
+    running_min,
+    single_fork_batch,
+    take_replica,
+)
+from ..device import generator as _generator
+from ..device import resolve_device
+from ..kernels.kw_queue import kw_queue as kw_queue_kernel
+from ..kernels.kw_queue import kw_queue_plain
+from ..kernels.residual_sampler import residual_sample
+from .workload import MachineClass
+
+__all__ = [
+    "VectorFleetResult",
+    "as_quantile_source",
+    "batched_queue",
+    "cell_bucket",
+    "emp_quantile",
+    "fleet_rollout",
+    "fork_draws",
+    "frontier",
+    "kw_queue",
+    "lindley",
+    "masked_single_fork",
+    "policy_search",
+    "retry_draws",
+    "retry_transform",
+    "sweep",
+    "sweep_loop",
+    "trace_kill_rollout",
+]
+
+#: device memory one chunk of cells may take for its single-job evaluation
+CELL_CHUNK_BYTES = 4 << 30
+
+#: the ROADMAP item that ports what `tail="hist"` needs
+_HIST_TODO = (
+    'tail="hist" needs repro.obs (sketch, device, evtail), which the port '
+    "does not have yet: ROADMAP Queue 1, item `obs/`"
+)
+
+
+@dataclasses.dataclass
+class VectorFleetResult:
+    sojourn: torch.Tensor  # (m_trials, n_jobs)
+    wait: torch.Tensor  # (m_trials, n_jobs)
+    service: torch.Tensor  # (m_trials, n_jobs) per-job T (slot-speed scaled)
+    cost: torch.Tensor  # (m_trials, n_jobs) per-job C (slot-speed scaled)
+    utilization: torch.Tensor  # (m_trials,)
+    slot: Optional[torch.Tensor] = None  # (m_trials, n_jobs) serving job slot
+    class_utilization: Optional[torch.Tensor] = None  # (m_trials, n_classes)
+    class_names: Optional[tuple] = None
+
+    @property
+    def mean_sojourn(self) -> float:
+        return float(self.sojourn.mean())
+
+    @property
+    def mean_wait(self) -> float:
+        return float(self.wait.mean())
+
+    @property
+    def mean_service(self) -> float:
+        return float(self.service.mean())
+
+    @property
+    def mean_cost(self) -> float:
+        return float(self.cost.mean())
+
+    @property
+    def sojourn_std_err(self) -> float:
+        """Std error over per-trial means (trials are independent)."""
+        per_trial = self.sojourn.mean(dim=1)
+        m = per_trial.shape[0]
+        return float(per_trial.std(correction=0) / math.sqrt(max(m - 1, 1)))
+
+    def percentile(self, q: float) -> float:
+        return float(np.percentile(self.sojourn.cpu().numpy(), q))
+
+    def summary(self) -> dict:
+        per_trial = self.sojourn.mean(dim=1)
+        m = per_trial.shape[0]
+        vals = torch.stack(
+            [
+                self.sojourn.mean(),
+                self.wait.mean(),
+                self.service.mean(),
+                self.cost.mean(),
+                self.utilization.mean(),
+                per_trial.std(correction=0) / math.sqrt(max(m - 1, 1)),
+            ]
+        ).cpu().numpy()
+        pcts = np.percentile(self.sojourn.cpu().numpy(), (50.0, 99.0, 99.9))
+        out = dict(zip(_SUMMARY_KEYS, (float(v) for v in (*vals[:5], *pcts, vals[5]))))
+        if self.class_utilization is not None and self.class_names is not None:
+            per_class = self.class_utilization.mean(dim=0).cpu().numpy()
+            for name, u in zip(self.class_names, per_class):
+                out[f"util_{name}"] = float(u)
+        return out
+
+
+_SUMMARY_KEYS = (
+    "mean_sojourn",
+    "mean_wait",
+    "mean_service",
+    "mean_cost",
+    "utilization",
+    "p50",
+    "p99",
+    "p999",
+    "sojourn_std_err",
+)
+
+
+def lindley(arrivals, services):
+    """Gang-serial (c = 1) queue: start_j = max(arrival_j, finish_{j-1}),
+    in closed form — finish_j = P_j + max_{k<=j}(A_k - P_{k-1}) with P the
+    service prefix sum — over the last axis.  Returns (starts, finishes)."""
+    csum = torch.cumsum(services, dim=-1)
+    finishes = csum + torch.cummax(arrivals - (csum - services), dim=-1).values
+    return finishes - services, finishes
+
+
+def kw_queue(arrivals, services, speeds):
+    """Kiefer–Wolfowitz FIFO G/G/c recursion with per-slot speeds for ONE
+    queue, as a plain per-job loop (the reference's `lax.scan`).  Job j
+    takes the fastest slot idle at its arrival, else the earliest-freeing
+    slot (ties toward lower index).  The engine never calls it: batches of
+    queues go through `batched_queue`.  Returns (starts, finishes,
+    scaled_services, slots), each (n_jobs,)."""
+    outs = kw_queue_plain(arrivals[None], services[None], speeds)
+    return tuple(z[0] for z in outs)
+
+
+def _queue_stats(arrivals, services, costs, n):
+    """c = 1 stats over a (trials, jobs) batch."""
+    starts, finishes = lindley(arrivals, services)
+    sojourn = finishes - arrivals
+    wait = starts - arrivals
+    makespan = finishes[..., -1] - arrivals[..., 0]
+    util = costs.sum(dim=-1) * n / (n * torch.clamp(makespan, min=1e-12))
+    return sojourn, wait, util
+
+
+def _kw_stats(arrivals, starts, finishes, svc, slots, costs, speeds, slot_class, class_slots, n):
+    """Per-trial G/G/c stats from an already-run queue, over (trials, jobs):
+    a job's (T, C) stretch by its slot's speed, utilization aggregates busy
+    copy-seconds per class.  The per-slot sums are float atomics on CUDA,
+    so `class_utilization` may vary in its last bits from run to run."""
+    sojourn = finishes - arrivals
+    wait = starts - arrivals
+    sl = slots.long()
+    cost = costs / speeds[sl]
+    makespan = finishes.amax(dim=-1) - arrivals[..., 0]
+    denom = torch.clamp(makespan, min=1e-12)
+    busy = cost * n
+    c = speeds.shape[0]
+    slot_busy = torch.zeros(busy.shape[:-1] + (c,), device=busy.device).scatter_add_(-1, sl, busy)
+    class_busy = torch.zeros(
+        busy.shape[:-1] + class_slots.shape, device=busy.device
+    ).index_add_(-1, slot_class.long(), slot_busy)
+    util = busy.sum(dim=-1) / (c * n * denom)
+    class_util = class_busy / (class_slots * denom[..., None])
+    return sojourn, wait, svc, cost, util, slots, class_util
+
+
+def _queue_kw_batch(arrivals, T, C, speeds, slot_class, class_slots, n, kernel=False):
+    """Queue every trial of already-sampled (T, C) through `batched_queue`."""
+    starts, fins, svc, slots = batched_queue(arrivals, T, speeds, kernel=kernel)
+    return _kw_stats(arrivals, starts, fins, svc, slots, C, speeds, slot_class, class_slots, n)
+
+
+@functools.lru_cache(maxsize=256)
+def _slot_arrays_cached(n: int, c: Optional[int], classes: Optional[tuple]):
+    if classes is None:
+        if c is None or c == 1:
+            return None
+        if c < 1:
+            raise ValueError("c (job slots) must be >= 1")
+        return (
+            torch.ones((c,)),
+            torch.zeros((c,), dtype=torch.int32),
+            torch.tensor([float(c * n)]),
+            ("default",),
+        )
+    ordered = sorted(classes, key=lambda k: -k.speed)  # stable on ties
+    speeds, slot_class, class_slots = [], [], []
+    for i, k in enumerate(ordered):
+        if k.slots % n:
+            raise ValueError(
+                f"class {k.name!r}: slots={k.slots} must be a multiple of "
+                f"n_tasks={n} for the gang-aligned fast path"
+            )
+        speeds += [k.speed] * (k.slots // n)
+        slot_class += [i] * (k.slots // n)
+        class_slots.append(float(k.slots))
+    if c is not None and c != len(speeds):
+        raise ValueError(f"c={c} disagrees with classes providing {len(speeds)} job slots")
+    if not speeds:
+        raise ValueError("classes provide no job slots")
+    return (
+        torch.tensor(speeds, dtype=torch.float32),
+        torch.tensor(slot_class, dtype=torch.int32),
+        torch.tensor(class_slots, dtype=torch.float32),
+        tuple(k.name for k in ordered),
+    )
+
+
+def _slot_arrays(n: int, c: Optional[int], classes: Optional[Sequence[MachineClass]], device):
+    """Resolve (c, classes) into per-job-slot arrays for the KW recursion:
+    (speeds, slot_class, class_slots, names) with job slots ordered fastest
+    first, on `device` — or None when the plain c=1 Lindley path applies.
+    The geometry is cached on the hashable (n, c, classes)."""
+    if classes is not None:
+        classes = tuple(classes)
+    slot = _slot_arrays_cached(n, c, classes)
+    if slot is None:
+        return None
+    return tuple(z.to(device) for z in slot[:3]) + (slot[3],)
+
+
+def _c1_slot_arrays(n: int, device):
+    """One unit-speed gang block: the geometry policy_search/frontier use
+    when no c / classes are given."""
+    return (
+        torch.ones((1,), device=device),
+        torch.zeros((1,), dtype=torch.int32, device=device),
+        torch.tensor([float(n)], device=device),
+        ("default",),
+    )
+
+
+def _arrivals(generator, shape):
+    """Unit-rate Poisson arrival times (cumsum of Exp(1) gaps) over `shape`."""
+    gaps = torch.empty(shape, device=generator.device).exponential_(generator=generator)
+    return torch.cumsum(gaps, dim=-1)
+
+
+def fleet_rollout(
+    dist: Distribution,
+    policy: SingleForkPolicy,
+    lam: float,
+    n: int,
+    n_jobs: int,
+    m_trials: int = 32,
+    seed: int = 0,
+    c: Optional[int] = None,
+    classes: Optional[Sequence[MachineClass]] = None,
+    kernel: bool = False,
+    device=None,
+) -> VectorFleetResult:
+    """m_trials independent fleets of n_jobs Poisson(λ) arrivals.
+
+    `c` is the number of concurrent gang blocks (capacity = c·n slots);
+    `classes` optionally splits capacity into heterogeneous pools.  c=1
+    without classes takes the closed-form Lindley path; anything else runs
+    the Kiefer–Wolfowitz queue (`batched_queue`); `kernel=True` routes the
+    c=1 case through the queue kernel too.
+    """
+    if lam <= 0:
+        raise ValueError("arrival rate lam must be > 0")
+    dev = resolve_device(device)
+    g = _generator(seed, dev)
+    arrivals = _arrivals(g, (m_trials, n_jobs)) / lam
+    s = num_stragglers(n, policy.p)
+    T, C = single_fork_batch(g, dist, n, s, policy.r, policy.keep, shape=(m_trials, n_jobs))
+    slot = _slot_arrays(n, c, classes, dev)
+    if slot is None and kernel:
+        slot = _c1_slot_arrays(n, dev)
+    if slot is None:
+        sojourn, wait, util = _queue_stats(arrivals, T, C, n)
+        return VectorFleetResult(sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util)
+    speeds, slot_class, class_slots, names = slot
+    sojourn, wait, T, C, util, slots, class_util = _queue_kw_batch(
+        arrivals, T, C, speeds, slot_class, class_slots, n, kernel=kernel
+    )
+    return VectorFleetResult(
+        sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util, slot=slots,
+        class_utilization=class_util, class_names=names,
+    )
+
+
+# --------------------------------------------------------------------------
+# fused frontier engine: (λ × π) cross-products on one shared draw set
+# --------------------------------------------------------------------------
+
+
+def emp_quantile(xs, u):
+    """Inverse-transform gather through the sorted empirical sample (type-1
+    inverse, identical to `core.distributions.Empirical.quantile`)."""
+    m = xs.shape[0]
+    idx = torch.clamp(torch.ceil(u * m).to(torch.int32) - 1, 0, m - 1)
+    return xs[idx]
+
+
+def batched_queue(arrivals, services, speeds, kernel: bool = False):
+    """FIFO G/G/c queues over any batch: each (..., n_jobs) row is one queue
+    with `speeds.shape[0]` job slots.  c > 1, or `kernel=True`, runs every
+    row through ONE call of the Kiefer–Wolfowitz kernel (`kernels.kw_queue`:
+    CUDA on a card, its plain version on the CPU); c = 1 otherwise is the
+    closed-form Lindley recursion.  Returns (starts, finishes,
+    scaled_services, slots), each with the input shape.  Rows must be in
+    arrival (FIFO) order."""
+    batch = arrivals.shape[:-1]
+    J = arrivals.shape[-1]
+    c = speeds.shape[0]
+    if kernel or c > 1:
+        outs = kw_queue_kernel(
+            arrivals.reshape(-1, J).contiguous(),
+            services.reshape(-1, J).contiguous(),
+            speeds.contiguous(),
+        )
+        return tuple(z.reshape(batch + (J,)) for z in outs)
+    svc = services / speeds[0]
+    starts, fins = lindley(arrivals, svc)
+    return starts, fins, svc, torch.zeros(arrivals.shape, dtype=torch.int32, device=arrivals.device)
+
+
+def _masked_cells(x_sorted, cm, k, r, keep):
+    """`masked_single_fork` for C cells at once on shared draws.
+
+    x_sorted: (1 or C, B..., n); cm: (1 or C, B..., n, r_cap), the fresh
+    block already running-min'd over its replica axis; k, r, keep: (C,).
+    Returns (T, C), each (C, B...)."""
+    n = x_sorted.shape[-1]
+    shape = tuple(k.shape[:1]) + tuple(x_sorted.shape[1:])
+    nd = len(shape)
+    xs = x_sorted.expand(shape)
+    kc, rc, keepc = (_cell(v, nd) for v in (k, r, keep))
+    t1 = torch.gather(xs, -1, (kc - 1).long().expand(shape[:-1] + (1,)))[..., 0]
+    straggler = torch.arange(n, device=xs.device, dtype=torch.int32) >= kc
+    c1 = torch.where(straggler, 0.0, xs).sum(dim=-1) + (n - kc[..., 0]) * t1
+    fresh_keep = torch.where(
+        rc > 0, take_replica(cm, torch.clamp(r - 1, min=0), shape), torch.inf
+    )
+    fresh_kill = take_replica(cm, r, shape)  # min over the first r+1 draws
+    remaining = xs - t1[..., None]
+    y = torch.where(keepc, torch.minimum(remaining, fresh_keep), fresh_kill)
+    y = torch.where(straggler, y, 0.0)
+    T = t1 + y.amax(dim=-1)
+    C = (c1 + (rc[..., 0] + 1.0) * y.sum(dim=-1)) / n
+    return T, C
+
+
+def masked_single_fork(x_sorted, fresh, k, r, keep):
+    """Single-fork (T, C) with a *dynamic* fork point (Definitions 1–2).
+
+    `x_sorted`: (..., n) sorted original task-time draws; `fresh`:
+    (..., n, r_cap) fresh replica draws with r_cap >= r+1.  k = n - s, r
+    and keep are 0-d tensors (or ints/bools) for one cell, or (C,) tensors
+    for C cells on the same draws, which adds a leading C dimension to the
+    result.  Stragglers are selected by an `iota >= k` mask and the fresh
+    columns by a gather into the running min over the replica axis.
+    Returns (T, C) with the batch shape of x_sorted[..., 0].
+    """
+    dev = x_sorted.device
+    k, r = (torch.as_tensor(v, dtype=torch.int32, device=dev) for v in (k, r))
+    keep = torch.as_tensor(keep, dtype=torch.bool, device=dev)
+    one = k.ndim == 0
+    k, r, keep = (v.reshape(-1) for v in (k, r, keep))
+    cm = running_min(fresh)
+    T, C = _masked_cells(x_sorted[None], cm[None], k, r, keep)
+    return (T[0], C[0]) if one else (T, C)
+
+
+def retry_draws(generator, quantile, shape, attempts: int):
+    """Shared-CRN draw pair for the geometric-retry transform: per logical
+    draw, `attempts` candidate service times and `attempts-1` fate
+    uniforms.  They carry no q, so a (λ × q × π) grid shares ONE pair."""
+    dev = generator.device
+    x = quantile(torch.rand(tuple(shape) + (attempts,), generator=generator, device=dev))
+    v = torch.rand(tuple(shape) + (attempts - 1,), generator=generator, device=dev)
+    return x, v
+
+
+def retry_transform(x, v, q):
+    """Effective busy time of a copy under the q failure law: attempt k+1
+    runs iff attempts 1..k all failed (v < q each), so the duration is
+    x[..., 0] + Σ_k alive_k · x[..., k+1] with alive = cumprod(v < q).
+    `q` is a float or a tensor that broadcasts against v (a leading cell
+    dimension gives one result per cell)."""
+    alive = torch.cumprod((v < q).to(x.dtype), dim=-1)
+    return x[..., 0] + (alive * x[..., 1:]).sum(dim=-1)
+
+
+def fork_draws(generator, quantile, shape, n: int, r_cap: int):
+    """The common-random-number draw pair `masked_single_fork` consumes:
+    (x_sorted: shape+(n,), fresh: shape+(n, r_cap)).  `quantile` is an
+    analytic distribution's `.quantile` or `partial(emp_quantile, xs)`."""
+    dev = generator.device
+    x_sorted = torch.sort(
+        quantile(torch.rand(tuple(shape) + (n,), generator=generator, device=dev)), dim=-1
+    ).values
+    fresh = quantile(torch.rand(tuple(shape) + (n, r_cap), generator=generator, device=dev))
+    return x_sorted, fresh
+
+
+#: stats computed per cell, in stack order; the percentile keys are added
+#: host-side from the returned sojourns
+_FRONTIER_KEYS = (
+    "mean_sojourn",
+    "mean_wait",
+    "mean_service",
+    "mean_cost",
+    "utilization",
+    "sojourn_std_err",
+    "rho",
+    "rho_work",
+    "rho_block",
+)
+
+
+def _chunks(n_cells: int, chunk: int):
+    for i in range(0, n_cells, chunk):
+        yield slice(i, min(i + chunk, n_cells))
+
+
+def cell_chunk_size(m_trials, n_jobs, n, r_cap, n_stages, general, attempts=None) -> int:
+    """Cells per chunk under `CELL_CHUNK_BYTES`, from the size of the
+    (cell, trial, job, task) intermediates of the evaluator that runs."""
+    elems = m_trials * n_jobs * n
+    if general:
+        # argsorts and permutations are int64; cohorts grow per stage
+        per_cell = elems * (4 * (12 + 4 * n_stages + 2 * r_cap) + 8 * 4)
+    else:
+        per_cell = elems * 4 * (8 + 2 * r_cap)
+    if attempts is not None:
+        per_cell += elems * 4 * attempts * (1 + r_cap * n_stages)
+    return max(1, CELL_CHUNK_BYTES // per_cell)
+
+
+def _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel):
+    """Queue every (cell, trial) and reduce each cell to its stats row.
+
+    arrivals, T, C: (cells, m, J).  Returns (stats (cells, 9 + classes),
+    sojourn (cells, m, J))."""
+    c = speeds.shape[0]
+    starts, fins, svc, slots = batched_queue(arrivals, T, speeds, kernel=kernel)
+    soj = fins - arrivals
+    wait = starts - arrivals
+    sl = slots.long()
+    cost = C / speeds[sl]
+    makespan = fins.amax(dim=-1) - arrivals[..., 0]  # (cells, m)
+    denom = torch.clamp(makespan, min=1e-12)
+    busy = cost * n  # copy-seconds per job (Definition 2)
+    total_busy = busy.sum(dim=-1)
+    util = (total_busy / (c * n * denom)).mean(dim=-1)
+    if c == 1:
+        class_util = (total_busy[..., None] / (class_slots * denom[..., None])).mean(dim=1)
+    else:
+        # float atomics on CUDA: util_<class> varies in its last bits
+        slot_busy = torch.zeros(busy.shape[:-1] + (c,), device=busy.device).scatter_add_(-1, sl, busy)
+        class_busy = torch.zeros(
+            busy.shape[:-1] + class_slots.shape, device=busy.device
+        ).index_add_(-1, slot_class.long(), slot_busy)
+        class_util = (class_busy / (class_slots * denom[..., None])).mean(dim=1)
+    per_trial = soj.mean(dim=-1)
+    m = per_trial.shape[1]
+    # rho_work: copy-seconds offered vs served; rho_block: gang-block
+    # occupancy, the bound that governs the aligned/KW queue
+    rho_work = lams * C.mean(dim=(1, 2)) / speeds.sum()
+    rho_block = lams * T.mean(dim=(1, 2)) / speeds.sum()
+    base = torch.stack(
+        [
+            soj.mean(dim=(1, 2)),
+            wait.mean(dim=(1, 2)),
+            svc.mean(dim=(1, 2)),
+            cost.mean(dim=(1, 2)),
+            util,
+            per_trial.std(dim=1, correction=0) / math.sqrt(max(m - 1, 1)),
+            torch.maximum(rho_work, rho_block),
+            rho_work,
+            rho_block,
+        ],
+        dim=1,
+    )
+    return torch.cat([base, class_util], dim=1), soj
+
+
+def _frontier_cells(
+    g, xs, pol, lams, speeds, slot_class, class_slots, dist, n, n_jobs, m_trials,
+    r_cap, n_stages, kernel, chunk,
+):
+    """Every (policy, λ) cell on one shared set of draws (the reference's
+    `_frontier_jit`).  `pol` is (modes, ks, ts, rs, keeps, ds) of lowered
+    (cells, S) tensors, with modes None for a grid wholly in the
+    single-stage-quantile/full-width domain, which takes the single-fork
+    evaluator — the host-side program selection of the reference."""
+    modes, ks, ts, rs, keeps, ds = pol
+    quantile = dist.quantile if dist is not None else partial(emp_quantile, xs)
+    shape = (m_trials, n_jobs)
+    n_cells = lams.shape[0]
+    if modes is None:
+        x_sorted, fresh = fork_draws(g, quantile, shape, n, r_cap)
+        cm = running_min(fresh)
+        del fresh
+        parts = [
+            _masked_cells(x_sorted[None], cm[None], ks[sl], rs[sl], keeps[sl])
+            for sl in _chunks(n_cells, chunk)
+        ]
+    else:
+        x, fresh = policy_draws(g, quantile, shape, n, r_cap, n_stages)
+        cm = running_min(fresh)
+        del fresh
+        parts = [
+            lowered_eval_cells(
+                x[None], cm[None], modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl]
+            )
+            for sl in _chunks(n_cells, chunk)
+        ]
+    T = torch.cat([p[0] for p in parts])
+    C = torch.cat([p[1] for p in parts])
+    arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
+    return _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
+
+
+def _frontier_faulty_cells(
+    g, xs, pol, lams, qs, speeds, slot_class, class_slots, dist, n, n_jobs, m_trials,
+    r_cap, n_stages, attempts, kernel, chunk,
+):
+    """`_frontier_cells` under the q task-failure law (the reference's
+    `_frontier_faulty_jit`): every draw goes through the geometric-retry
+    transform with its cell's q before the policy evaluator, on one shared
+    retry-draw set.  fault=None never comes here (`_eval_cells` selects)."""
+    modes, ks, ts, rs, keeps, ds = pol
+    quantile = dist.quantile if dist is not None else partial(emp_quantile, xs)
+    shape = (m_trials, n_jobs)
+    n_cells = lams.shape[0]
+    fresh_shape = shape + ((n, r_cap) if modes is None else (n_stages, n, r_cap))
+    xr, xv = retry_draws(g, quantile, shape + (n,), attempts)
+    fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
+    parts = []
+    for sl in _chunks(n_cells, chunk):
+        q_x = _cell(qs[sl], xv.ndim + 1)
+        q_f = _cell(qs[sl], fv.ndim + 1)
+        x = retry_transform(xr, xv, q_x)
+        cm = running_min(retry_transform(fr, fv, q_f))
+        if modes is None:
+            x_sorted = torch.sort(x, dim=-1).values
+            parts.append(_masked_cells(x_sorted, cm, ks[sl], rs[sl], keeps[sl]))
+        else:
+            parts.append(
+                lowered_eval_cells(x, cm, modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl])
+            )
+    T = torch.cat([p[0] for p in parts])
+    C = torch.cat([p[1] for p in parts])
+    arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
+    return _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
+
+
+def as_quantile_source(dist_or_samples, device=None):
+    """Normalize the frontier's first argument: (analytic_dist | None, xs).
+
+    Analytic distributions enter through their quantile transform;
+    `Empirical` instances and raw sample arrays through the empirical
+    gather over the sorted float32 samples `xs` on `device`."""
+    dev = resolve_device(device)
+    if isinstance(dist_or_samples, Empirical):
+        return None, dist_or_samples.sorted.to(dev)
+    if isinstance(dist_or_samples, Distribution):
+        return dist_or_samples, torch.zeros((1,), device=dev)
+    samples = dist_or_samples
+    if not torch.is_tensor(samples):
+        samples = torch.as_tensor(np.asarray(samples))
+    xs = torch.sort(samples.to(device=dev, dtype=torch.float32).reshape(-1)).values
+    if xs.shape[0] < 2:
+        raise ValueError("need at least 2 samples to drive the empirical path")
+    return None, xs
+
+
+def cell_bucket(n_cells: int) -> int:
+    """Next power-of-two bucket (>= 8), the reference's compile-sharing pad
+    size.  The port evaluates only the real cells and never pads."""
+    b = 8
+    while b < n_cells:
+        b *= 2
+    return b
+
+
+def _eval_cells(
+    dist_or_samples,
+    cell_policies: Sequence,
+    cell_lams: Sequence[float],
+    n: int,
+    n_jobs: int,
+    m_trials: int,
+    seed: int,
+    c: Optional[int],
+    classes: Optional[Sequence[MachineClass]],
+    kernel: bool,
+    r_cap: Optional[int],
+    pad_cells: bool,
+    tail="exact",
+    cell_qs: Optional[Sequence[float]] = None,
+    attempts: Optional[int] = None,
+    device=None,
+    cell_chunk: Optional[int] = None,
+) -> list[dict]:
+    """Shared engine behind `frontier` and `policy_search`: one stats dict
+    per (policy, λ) cell, all cells on one shared draw set.  `cell_qs` (one
+    per cell, with the retry-draw width `attempts`) routes the grid through
+    the faulty program.  `cell_chunk` sets the cells evaluated together
+    (default: as many as `CELL_CHUNK_BYTES` allows); it changes no result.
+    `pad_cells` is the reference's compile-sharing pad and is ignored: only
+    the real cells are evaluated.  The percentile keys are computed
+    host-side with `np.percentile`."""
+    if not cell_policies:
+        raise ValueError("need at least one candidate policy")
+    if any(lam <= 0 for lam in cell_lams):
+        raise ValueError("arrival rate lam must be > 0")
+    if tail == "hist" or not isinstance(tail, str):
+        raise NotImplementedError(_HIST_TODO)
+    if tail != "exact":
+        raise ValueError(f'tail must be "exact" or "hist", got {tail!r}')
+    dev = resolve_device(device)
+    dist, xs = as_quantile_source(dist_or_samples, dev)
+    slot = _slot_arrays(n, c, classes, dev)
+    speeds, slot_class, class_slots, names = slot if slot is not None else _c1_slot_arrays(n, dev)
+
+    n_cells = len(cell_policies)
+    lowered = lower_policies(list(cell_policies), n)
+    if any(name is not None for name in lowered.class_names):
+        raise ValueError(
+            "class-restricted (OnClass) placement changes queue geometry, "
+            "not the single-job law — model the class mix via `classes=`"
+        )
+    r_max = lowered.r_max
+    if r_cap is None:
+        r_cap = r_max + 1
+    elif r_cap < r_max + 1:
+        raise ValueError(f"r_cap={r_cap} < r_max+1={r_max + 1}")
+    if (lowered.k < 0).any() or (lowered.k > n).any() or (lowered.r < 0).any():
+        raise ValueError("lowered fork indices must lie in [0, n] and replica counts >= 0")
+    lams = torch.tensor([float(lam) for lam in cell_lams], dtype=torch.float32, device=dev)
+    if cell_qs is not None:
+        if len(cell_qs) != n_cells:
+            raise ValueError("need one q per cell")
+        if attempts is None or attempts < 1:
+            raise ValueError("cell_qs needs attempts >= 1")
+        qs = torch.tensor([float(q) for q in cell_qs], dtype=torch.float32, device=dev)
+
+    def t(v):
+        return torch.as_tensor(v, device=dev)
+
+    # grids wholly in the single-stage-quantile/full-width domain take the
+    # single-fork evaluator; anything else the general lowered evaluator
+    general = lowered.multi_stage or lowered.has_time or lowered.has_group
+    if general:
+        pol = tuple(t(v) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
+    else:
+        pol = (None, t(lowered.k[:, 0]), None, t(lowered.r[:, 0]), t(lowered.keep[:, 0]), None)
+    if cell_chunk is None:
+        cell_chunk = cell_chunk_size(
+            m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None
+        )
+    g = _generator(seed, dev)
+    if cell_qs is None:
+        stats, soj = _frontier_cells(
+            g, xs, pol, lams, speeds, slot_class, class_slots, dist, n, n_jobs,
+            m_trials, r_cap, lowered.n_stages, kernel, cell_chunk,
+        )
+    else:
+        stats, soj = _frontier_faulty_cells(
+            g, xs, pol, lams, qs, speeds, slot_class, class_slots, dist, n, n_jobs,
+            m_trials, r_cap, lowered.n_stages, attempts, kernel, cell_chunk,
+        )
+    stats = stats.cpu().numpy()
+    pcts = np.percentile(soj.cpu().numpy().reshape(n_cells, -1), (50.0, 99.0, 99.9), axis=1)
+    rows = []
+    nk = len(_FRONTIER_KEYS)
+    for i, (pol_i, lam) in enumerate(zip(cell_policies, cell_lams)):
+        row = stats[i]
+        d = dict(lam=float(lam), policy=pol_i.label(),
+                 **dict(zip(_FRONTIER_KEYS, map(float, row[:nk]))))
+        if cell_qs is not None:
+            d["q"] = float(cell_qs[i])
+        d["p50"], d["p99"], d["p999"] = (float(pcts[j, i]) for j in range(3))
+        if slot is not None:  # mirror VectorFleetResult.summary(): per-class util
+            for name, u in zip(names, row[nk:]):
+                d[f"util_{name}"] = float(u)
+        rows.append(d)
+    return rows
+
+
+def _fault_qs(fault):
+    """Normalize `frontier`'s fault argument to (qs, attempts): one
+    `FaultSpec` or a sequence of them, q law with immediate relaunch only."""
+    from ..faults.model import FaultSpec
+
+    specs = [fault] if isinstance(fault, FaultSpec) else list(fault)
+    if not specs:
+        raise ValueError("need at least one FaultSpec")
+    qs = []
+    attempts = None
+    for f in specs:
+        if not isinstance(f, FaultSpec):
+            raise TypeError(f"fault entries must be FaultSpec, got {type(f)}")
+        if f.fail_dist is not None:
+            raise ValueError(
+                "the fused engines model the q failure law only; fail_dist "
+                "runs exactly on the event engine"
+            )
+        if f.machine_faults:
+            raise ValueError(
+                "machine crashes run exactly on the event engine; for a fused "
+                "grid fold the crash hazard into q via "
+                "repro_torch.faults.effective_fail_prob"
+            )
+        if f.backoff_base != 0.0:
+            raise ValueError(
+                "the fused retry transform models immediate relaunch "
+                "(backoff_base == 0); nonzero backoff runs on the event engine"
+            )
+        if attempts is None:
+            attempts = f.max_attempts
+        elif f.max_attempts != attempts:
+            raise ValueError(
+                "all FaultSpecs in one fused grid must share max_attempts "
+                "(it is the retry-draw width)"
+            )
+        qs.append(float(f.q))
+    return qs, attempts
+
+
+def frontier(
+    dist_or_samples,
+    policies: Sequence,
+    lams,
+    n: int,
+    n_jobs: int,
+    m_trials: int = 32,
+    seed: int = 0,
+    c: Optional[int] = None,
+    classes: Optional[Sequence[MachineClass]] = None,
+    kernel: bool = False,
+    r_cap: Optional[int] = None,
+    pad_cells: bool = True,
+    tail="exact",
+    fault=None,
+    device=None,
+) -> list[dict]:
+    """Latency–cost frontier: the whole (policy × λ) cross-product on one
+    shared set of common-random-number draws.
+
+    `dist_or_samples` is an analytic `Distribution`, an `Empirical`, or a
+    raw sample array.  Rows come back policy-major: the `_SUMMARY_KEYS`
+    plus `rho` / `rho_work` / `rho_block` and per-class `util_*` when c > 1
+    or classes are given.  `policies` may mix any algebra families.
+    `r_cap` pins the fresh-draw width (and so the random stream);
+    `pad_cells` is accepted for parity and changes nothing; `kernel=True`
+    sends the c = 1 queue through the queue kernel as well.
+
+    `fault` — a `FaultSpec` or a sequence of them — adds a q axis: cells =
+    policies × λs × faults (q fastest) and rows gain a "q" key.  A single
+    disabled spec (q=0) takes the fault-free program, so its rows equal
+    fault=None bit for bit.  `tail="hist"` is not ported yet.
+    """
+    policies = list(policies)
+    lams = [float(lam) for lam in lams]
+    if not lams:
+        raise ValueError("need at least one arrival rate")
+    cell_policies = [pol for pol in policies for _ in lams]
+    cell_lams = lams * len(policies)
+    cell_qs = attempts = None
+    if fault is not None:
+        qs, attempts = _fault_qs(fault)
+        if len(qs) == 1 and qs[0] == 0.0:
+            rows = _eval_cells(
+                dist_or_samples, cell_policies, cell_lams, n, n_jobs, m_trials,
+                seed, c, classes, kernel, r_cap, pad_cells, tail=tail, device=device,
+            )
+            for row in rows:
+                row["q"] = 0.0
+            return rows
+        cell_policies = [pol for pol in cell_policies for _ in qs]
+        cell_lams = [lam for lam in cell_lams for _ in qs]
+        cell_qs = qs * (len(policies) * len(lams))
+    return _eval_cells(
+        dist_or_samples, cell_policies, cell_lams, n, n_jobs, m_trials, seed,
+        c, classes, kernel, r_cap, pad_cells, tail=tail,
+        cell_qs=cell_qs, attempts=attempts, device=device,
+    )
+
+
+def sweep(
+    dist: Distribution,
+    policies,
+    lams,
+    n: int,
+    n_jobs: int,
+    m_trials: int = 32,
+    seed: int = 0,
+    c: Optional[int] = None,
+    classes: Optional[Sequence[MachineClass]] = None,
+    kernel: bool = False,
+    device=None,
+) -> list[dict]:
+    """Load × policy frontier, one summary row per (λ, π) cell: a thin
+    wrapper over `frontier`."""
+    return frontier(
+        dist, policies, lams, n, n_jobs, m_trials, seed=seed, c=c, classes=classes,
+        kernel=kernel, device=device,
+    )
+
+
+def sweep_loop(
+    dist: Distribution,
+    policies,
+    lams,
+    n: int,
+    n_jobs: int,
+    m_trials: int = 32,
+    seed: int = 0,
+    c: Optional[int] = None,
+    classes: Optional[Sequence[MachineClass]] = None,
+    device=None,
+) -> list[dict]:
+    """Per-cell sweep: one `fleet_rollout` per (λ, π) cell, the baseline the
+    fused `frontier` is checked against.  One seed per λ, shared by every
+    policy at that λ (common random numbers at fixed load)."""
+    lams = list(lams)
+    lam_seeds = [int(s) for s in np.random.SeedSequence(seed).generate_state(len(lams))]
+    rows = []
+    for policy in policies:
+        for lam, lam_seed in zip(lams, lam_seeds):
+            res = fleet_rollout(
+                dist, policy, lam, n, n_jobs, m_trials, seed=lam_seed, c=c,
+                classes=classes, device=device,
+            )
+            rows.append(dict(lam=float(lam), policy=policy.label(), **res.summary()))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# fused empirical policy search: the adaptive controller's inner loop
+# --------------------------------------------------------------------------
+
+
+def policy_search(
+    samples,
+    candidates: Sequence,
+    lam: float,
+    n: int,
+    n_jobs: int = 192,
+    m_trials: int = 8,
+    seed: int = 0,
+    c: Optional[int] = None,
+    classes: Optional[Sequence[MachineClass]] = None,
+    kernel: bool = False,
+    r_cap: Optional[int] = None,
+    pad_candidates: bool = True,
+    tail="exact",
+    fault=None,
+    device=None,
+) -> list[dict]:
+    """Score candidate policies on an empirical trace at an estimated load.
+
+    Per-job (T, C) under each candidate are bootstrap-resampled from
+    `samples` and pushed through the G/G/c queue at rate `lam`, so a policy
+    is judged by its fleet sojourn.  It is the frontier engine at one λ,
+    over shared draws.  Returns one dict per candidate: the policy, its
+    label, the frontier keys.  `fault` (one `FaultSpec`, q law) scores the
+    candidates under the geometric-retry transform.
+    """
+    if lam <= 0:
+        raise ValueError("arrival rate lam must be > 0")
+    candidates = list(candidates)
+    cell_qs = attempts = None
+    if fault is not None:
+        qs, attempts = _fault_qs(fault)
+        if len(qs) != 1:
+            raise ValueError("policy_search takes a single FaultSpec")
+        if qs[0] == 0.0:
+            cell_qs = attempts = None
+        else:
+            cell_qs = qs * len(candidates)
+    rows = _eval_cells(
+        samples, candidates, [float(lam)] * len(candidates), n, n_jobs, m_trials,
+        seed, c, classes, kernel, r_cap, pad_candidates, tail=tail,
+        cell_qs=cell_qs, attempts=attempts, device=device,
+    )
+    out = []
+    for pol, row in zip(candidates, rows):
+        row.pop("policy", None)
+        row.pop("lam", None)
+        out.append(dict(policy=pol, label=pol.label(), **row))
+    return out
+
+
+# --------------------------------------------------------------------------
+# trace-driven π_kill path through the residual sampler kernel
+# --------------------------------------------------------------------------
+
+
+def trace_kill_rollout(
+    samples,
+    policy: SingleForkPolicy,
+    lam: float,
+    n: int,
+    n_jobs: int,
+    m_trials: int = 32,
+    seed: int = 0,
+    c: Optional[int] = None,
+    classes: Optional[Sequence[MachineClass]] = None,
+    kernel: bool = False,
+    device=None,
+) -> VectorFleetResult:
+    """Fleet rollout where task times bootstrap an empirical trace, π_kill.
+
+    Original draws are the empirical inverse-transform gather; the
+    straggler residuals (min over r+1 fresh draws, eq. (7)) run through
+    `kernels.residual_sampler` — one call of shape (m_trials·n_jobs, s, r+1)
+    covers the whole fleet.  The queue runs as in `fleet_rollout`.
+    """
+    if policy.keep and not policy.is_baseline:
+        raise ValueError("the residual-sampler fast path models π_kill only")
+    if lam <= 0:
+        raise ValueError("arrival rate lam must be > 0")
+    dev = resolve_device(device)
+    g = _generator(seed, dev)
+
+    emp = Empirical(samples)
+    xs = emp.sorted.to(dev)
+    s = num_stragglers(n, policy.p)
+    r = policy.r
+    M = m_trials * n_jobs
+
+    u0 = torch.rand((M, n), generator=g, device=dev)
+    x_sorted = torch.sort(emp_quantile(xs, u0), dim=1).values
+    if s == 0:  # baseline: no residual phase, nothing for the kernel to do
+        T = x_sorted[:, -1].reshape(m_trials, n_jobs)
+        C = (x_sorted.sum(dim=1) / n).reshape(m_trials, n_jobs)
+    else:
+        k = n - s
+        t1 = x_sorted[:, k - 1]
+        iota = torch.arange(n, device=dev)
+        c1 = torch.where(iota[None, :] < k, x_sorted, 0.0).sum(dim=1) + s * t1
+        u = torch.rand((M, s, r + 1), generator=g, device=dev)
+        max_y, sum_y = residual_sample(u, xs)
+        T = (t1 + max_y).reshape(m_trials, n_jobs)
+        C = ((c1 + (r + 1) * sum_y) / n).reshape(m_trials, n_jobs)
+
+    arrivals = _arrivals(g, (m_trials, n_jobs)) / lam
+    slot = _slot_arrays(n, c, classes, dev)
+    if slot is None and kernel:
+        slot = _c1_slot_arrays(n, dev)
+    if slot is None:
+        sojourn, wait, util = _queue_stats(arrivals, T, C, n)
+        return VectorFleetResult(sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util)
+    speeds, slot_class, class_slots, names = slot
+    sojourn, wait, T, C, util, slots, class_util = _queue_kw_batch(
+        arrivals, T, C, speeds, slot_class, class_slots, n, kernel=kernel
+    )
+    return VectorFleetResult(
+        sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util, slot=slots,
+        class_utilization=class_util, class_names=names,
+    )
