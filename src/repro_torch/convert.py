@@ -1,15 +1,17 @@
 """Carry the reference's state into the port.
 
-The system has no weights: its state is the distribution parameters, the
-sorted empirical trace and the lowered policy tensors.  These functions
-build the port's objects from the reference's numpy arrays and fields, so
-a test can feed both packages exactly the same state (policy-lowering
-parity and evaluator parity are then tested apart).
+The planner's state is the distribution parameters, the sorted empirical
+trace and the lowered policy tensors; the LM's is its parameter tree.
+These functions build the port's objects from the reference's numpy arrays
+and fields, so a test can feed both packages exactly the same state
+(policy-lowering parity and evaluator parity are then tested apart).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+import torch
 
 from .core import distributions
 from .core.policy import MODE_TIME, LoweredPolicies
@@ -67,3 +69,47 @@ def empirical_from_numpy(sorted_samples) -> distributions.Empirical:
     if xs.ndim != 1 or np.any(np.diff(xs) < 0):
         raise ValueError("empirical_from_numpy expects a sorted 1-D array")
     return distributions.Empirical(xs)
+
+
+#: the reference's kernel route names that differ in the port
+_IMPLS = {"pallas": "kernel"}
+
+
+def impl_from_reference(name: str) -> str:
+    """The port's name for a reference `attn_impl` / `ssm_impl`: "pallas"
+    becomes "kernel", the others keep their names."""
+    return _IMPLS.get(name, name)
+
+
+def model_params_from_reference(params, cfg, device) -> dict:
+    """The port's parameters from the reference's parameter tree, its
+    leaves given as numpy arrays: `top` and `shared_attn` key for key, and
+    the stacked (L, ...) arrays of `layers` as one dict per layer.  Each
+    tensor takes the dtype the port's own init gives it (`cfg.param_dtype`,
+    float32 for the SSM's A_log, dt_bias and D)."""
+    from .models.lm import build_model
+
+    like = build_model(cfg).init(device="meta")
+
+    def carry(arrays, shapes, where):
+        if set(arrays) != set(shapes):
+            raise ValueError(f"{where}: keys {sorted(arrays)} are not {sorted(shapes)}")
+        out = {}
+        for k, want in shapes.items():
+            t = torch.from_numpy(np.array(arrays[k], dtype=np.float32))
+            if tuple(t.shape) != tuple(want.shape):
+                raise ValueError(f"{where}/{k}: shape {tuple(t.shape)}, expected {tuple(want.shape)}")
+            out[k] = t.to(device=device, dtype=want.dtype)
+        return out
+
+    out = {"top": carry(params["top"], like["top"], "top")}
+    n_layers = len(like["layers"])
+    out["layers"] = [
+        carry({k: v[i] for k, v in params["layers"].items()}, like["layers"][i], f"layers[{i}]")
+        for i in range(n_layers)
+    ]
+    if any(np.shape(v)[0] != n_layers for v in params["layers"].values()):
+        raise ValueError(f"layers: every stacked array must lead with {n_layers} layers")
+    if "shared_attn" in like:
+        out["shared_attn"] = carry(params["shared_attn"], like["shared_attn"], "shared_attn")
+    return out

@@ -1,7 +1,7 @@
 # The paper's straggler-replication core, ported: distributions, the policy
-# algebra and its lowering, Monte-Carlo simulation and the Algorithm 1
-# bootstrap.  analysis / residual / evt / optimize / adaptive are not
-# ported yet (ROADMAP Queue 1).
+# algebra and its lowering, residual distributions and the Theorem 1-3
+# analysis, Monte-Carlo simulation, the Algorithm 1 bootstrap, policy
+# optimization and the online controller.
 from .distributions import (  # noqa: F401
     Distribution,
     Empirical,
@@ -9,6 +9,7 @@ from .distributions import (  # noqa: F401
     ShiftedExp,
     Uniform,
     Weibull,
+    upper_end_point,
 )
 from .policy import (  # noqa: F401
     BASELINE,
@@ -38,4 +39,27 @@ from .simulate import (  # noqa: F401
     simulate_multifork,
     single_fork_batch,
 )
+from .residual import ResidualDistribution  # noqa: F401
+from .analysis import (  # noqa: F401
+    LatencyCost,
+    baseline_cost,
+    baseline_latency,
+    corollary1_exponent,
+    lemma1_prefer_kill,
+    theorem1,
+    theorem2_cost,
+    theorem2_latency,
+    theorem3_cost,
+    theorem3_latency,
+)
 from .bootstrap import BootstrapEstimate, estimate, residual_tail_grid  # noqa: F401
+from .optimize import (  # noqa: F401
+    PolicyEvaluation,
+    analytic_evaluator,
+    bootstrap_evaluator,
+    optimize_cost_sensitive,
+    optimize_latency_sensitive,
+    tradeoff_curve,
+)
+from .adaptive import OnlinePolicyController  # noqa: F401
+from . import evt  # noqa: F401

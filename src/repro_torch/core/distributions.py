@@ -28,6 +28,7 @@ __all__ = [
     "Uniform",
     "Weibull",
     "Empirical",
+    "upper_end_point",
 ]
 
 
@@ -57,6 +58,19 @@ class Distribution:
     def sample(self, generator: torch.Generator, shape=()):
         u = torch.rand(shape, generator=generator, device=generator.device)
         return self.quantile(u)
+
+    def mean_numeric(self, num: int = 4096):
+        """E[X] = lower + ∫ tail(x) dx over [lower, hi] for nonneg X."""
+        lo, hi = self.support()
+        if math.isinf(hi):
+            hi = float(self.quantile(1.0 - 1e-7))
+        xs = torch.linspace(lo, hi, num, dtype=torch.float32)
+        return lo + torch.trapezoid(self.tail(xs), xs)
+
+
+def upper_end_point(dist: Distribution) -> float:
+    """ω(F_X) = sup{x : F_X(x) < 1}  (paper eq. (1))."""
+    return dist.support()[1]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -102,6 +102,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kw_queue_launch.restype = i
     lib.residual_sample_launch.argtypes = [p, p, i, i, i, i, p, p, i, p, i]
     lib.residual_sample_launch.restype = i
+    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p, i]
+    lib.flash_attention_launch.restype = i
+    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i]
+    lib.ssd_scan_launch.restype = i
+    lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,0 +1,146 @@
+"""Mamba2 SSD chunked scan: CUDA kernel and plain version.
+
+Replaces the TPU kernel `src/repro/kernels/ssd_scan.py::ssd_scan` (Pallas
+body `_kernel`).  x: (Bt, S, H, P), dt: (Bt, S, H) float32, A, D: (H,)
+float32, B, C: (Bt, S, G, N) in x's type.  Per chunk of `chunk` steps, with
+cs = cumsum(dt·A): y = (C·Bᵀ ⊙ exp(cs_i - cs_j)[j<=i] ⊙ dt)·x + exp(cs)·C·h
++ D·x, and the state h (P × N, float32) is carried across chunks from
+zero.  Returns y in x's type and h_final (Bt, H, P, N) float32, all
+arithmetic in float32.
+
+The kernel (`csrc/ssd_scan.cu`) gives one block to each (batch row, head)
+and loops over the chunks with h in shared memory; it indexes the group of
+B and C for each head and masks the ragged last chunk, where the TPU
+wrapper made per-head copies and padded.  Bound on an H100 at the serve
+shape (1, 1024, 64, 64), N = 64, chunk 128, bf16: about 18 MB moved, 5.5
+µs at 3.35 TB/s; the grid has only B·H = 64 blocks for 132 SMs, and each
+walks its chunks in order in float32, so the kernel is bound by its
+parallelism (see the source).
+
+`ssd_scan` takes the plain version only for tensors on the CPU.  For a
+CUDA tensor it launches the kernel or raises.  `ssd_scan.launches` counts
+the kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+#: shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232448
+#: largest chunk, head dim P and state dim N the kernel takes
+MAX_CHUNK = 128
+MAX_WIDTH = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 128):
+    """The chunked scan in plain float32 PyTorch: the TPU kernel's
+    arithmetic over all chunks at once, with the state carried by a loop
+    over chunks.  Returns (y in x's dtype, h_final float32)."""
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf, Bf, Cf, dtf = x.float(), B.float(), C.float(), dt.float()
+    if pad:  # dt = 0 and x = 0: a step that neither decays nor adds
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+    rep = H // G
+    xc = xf.reshape(Bt, nc, Q, H, P)
+    Bc = Bf.reshape(Bt, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    Cc = Cf.reshape(Bt, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    dth = dtf.reshape(Bt, nc, Q, H).permute(0, 1, 3, 2)  # (Bt, nc, H, Q)
+    cs = torch.cumsum(dth * A.float()[:, None], dim=-1)
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.where(causal, torch.exp(cs[..., :, None] - cs[..., None, :]), 0.0)
+    scores = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
+    y = torch.einsum("bchij,bcjhp->bcihp", scores * L * dth[..., None, :], xc)
+    w = torch.exp(cs[..., -1:] - cs) * dth  # (Bt, nc, H, Q)
+    states = torch.einsum("bchj,bcjhp,bcjhn->bchpn", w, xc, Bc)
+    decay = torch.exp(cs[..., -1])  # (Bt, nc, H)
+    h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    ch = torch.einsum("bcihn,bchpn->bcihp", Cc, torch.stack(h_prev, dim=1))
+    y = y + ch * torch.exp(cs).permute(0, 1, 3, 2)[..., None] + xc * D.float()[:, None]
+    return y.reshape(Bt, nc * Q, H, P)[:, :S].to(x.dtype), h
+
+
+def _check(x, dt, A, B, C, D, chunk):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan: x must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("B", B), ("C", C)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"ssd_scan: {name} is {t.dtype}, x is {x.dtype}")
+    for name, t in (("dt", dt), ("A", A), ("D", D)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: {name} must be float32, got {t.dtype}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C), ("D", D)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous")
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan: {name} is on {t.device}, x on {x.device}")
+    if x.ndim != 4 or min(x.shape) < 1:
+        raise ValueError(f"ssd_scan: x must be (Bt, S, H, P), got {tuple(x.shape)}")
+    Bt, S, H, _ = x.shape
+    if dt.shape != (Bt, S, H):
+        raise ValueError(f"ssd_scan: dt must be {(Bt, S, H)}, got {tuple(dt.shape)}")
+    if A.shape != (H,) or D.shape != (H,):
+        raise ValueError(f"ssd_scan: A and D must be ({H},), got {tuple(A.shape)}, {tuple(D.shape)}")
+    if B.ndim != 4 or B.shape != C.shape or B.shape[:2] != (Bt, S) or min(B.shape) < 1:
+        raise ValueError(
+            f"ssd_scan: B and C must be one (Bt, S, G, N) shape, got {tuple(B.shape)}, {tuple(C.shape)}"
+        )
+    if H % B.shape[2]:
+        raise ValueError(f"ssd_scan: H={H} must be a multiple of G={B.shape[2]}")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk must be at least 1, got {chunk}")
+
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
+    """Chunked SSD scan from a zero state; see `ssd_scan_plain`."""
+    _check(x, dt, A, B, C, D, chunk)
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {dev}")
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if chunk > MAX_CHUNK or P > MAX_WIDTH or N > MAX_WIDTH:
+        raise ValueError(
+            f"ssd_scan: the kernel takes chunk, P and N up to {MAX_CHUNK}, got {chunk}, {P}, {N}"
+        )
+    if H > 65535 or Bt > 65535:
+        raise ValueError("ssd_scan: Bt and H must be at most 65535")
+    from .build import load_library
+
+    lib = load_library()
+    smem = lib.ssd_scan_smem_bytes(chunk, P, N)
+    if not 0 < smem <= SMEM_LIMIT:
+        raise ValueError(
+            f"ssd_scan: chunk={chunk}, P={P}, N={N} needs {smem} bytes of shared memory "
+            f"(limit {SMEM_LIMIT})"
+        )
+    y = torch.empty_like(x)
+    h_final = torch.empty((Bt, H, P, N), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        y.data_ptr(), h_final.data_ptr(), Bt, S, H, P, G, N, chunk, _DTYPES[x.dtype], stream,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
+    ssd_scan.launches += 1
+    return y, h_final
+
+
+ssd_scan.launches = 0

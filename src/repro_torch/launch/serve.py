@@ -1,0 +1,126 @@
+"""Serving entry point: hedged batched decoding with online policy adaptation.
+
+    python -m repro_torch.launch.serve                       # full Zamba2-1.2B on the card
+    python -m repro_torch.launch.serve --reduced --device cpu
+
+Counterpart of `repro.launch.serve`.  Each request is a prefill of its
+prompt plus greedy decoding of a `models.lm` model with seeded random
+weights; the requests of a batch run under `HedgedServer`, whose simulated
+cluster times them and whose controller re-plans the hedging policy
+(p, r, keep|kill) through Algorithm 1.  `--arch` defaults to zamba2-1.2b
+at its full published width on the card, where prefill runs the CUDA
+flash-attention and SSD-scan kernels; `--reduced` takes the reference's
+reduced config.  The loop runs eagerly.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..configs import ARCH_IDS, get_config, get_reduced
+from ..core import Pareto, ShiftedExp, SingleForkPolicy
+from ..device import resolve_device
+from ..models.lm import build_model
+from ..runtime import HedgedServer, SimCluster
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default="zamba2-1.2b")
+    ap.add_argument("--reduced", action="store_true", help="the reference's reduced config")
+    ap.add_argument("--device", default=None, help="torch device; default the card")
+    ap.add_argument("--batches", type=int, default=6)
+    ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--prompt", type=int, default=12)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--dist", choices=["pareto", "shifted-exp"], default="pareto")
+    ap.add_argument("--no-adapt", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one run served, for callers that check it."""
+
+    model: object
+    params: dict
+    server: HedgedServer
+    requests: list
+    outputs: list  # per batch: one (steps,) array of tokens per request
+    stats: list  # per batch: ServeStats
+    prefill_s: list  # per request served: prefill wall seconds
+    decode_s: list  # per request served: wall seconds of its decode steps
+    logits_finite: bool  # every prefill and decode logit of every request
+
+
+def run(args: argparse.Namespace, log=print) -> ServeRun:
+    dev = resolve_device(args.device)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(seed=args.seed, device=dev)
+    total = args.prompt + args.steps
+    prefill_s, decode_s = [], []
+    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)  # summed on the device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def serve_request(prompt_tokens):
+        tokens = torch.as_tensor(prompt_tokens, dtype=torch.int32, device=dev)[None, :]
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        nonfinite.add_((~torch.isfinite(logits)).sum())
+        cache = model.grow_cache(cache, total)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        sync()
+        t1 = time.perf_counter()
+        out = [tok]
+        for i in range(args.steps - 1):
+            logits, cache = model.decode_step(params, cache, tok, args.prompt + i)
+            nonfinite.add_((~torch.isfinite(logits)).sum())
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+        result = torch.stack(out, dim=1)[0].cpu().numpy()
+        prefill_s.append(t1 - t0)
+        decode_s.append(time.perf_counter() - t1)
+        return result
+
+    dist = Pareto(alpha=1.7, xm=0.040) if args.dist == "pareto" else ShiftedExp(0.04, 20.0)
+    server = HedgedServer(
+        SimCluster(4 * args.requests, dist, seed=args.seed, slow_fraction=0.08, slow_factor=12.0),
+        serve_request,
+        adapt=not args.no_adapt,
+        policy=SingleForkPolicy(0.05, 1, True),
+        device=dev,
+    )
+    rng = np.random.default_rng(args.seed)
+    requests = [rng.integers(0, cfg.vocab, size=args.prompt) for _ in range(args.requests)]
+    width = "reduced" if args.reduced else "full"
+    log(f"arch={cfg.arch_id} ({width}) on {dev}  {args.requests} req/batch x {args.batches} batches")
+    log("batch  policy                          latency     p50     p99    cost")
+    outputs, stats = [], []
+    for b in range(args.batches):
+        outs, st = server.serve_batch(requests)
+        if not all(len(o) == args.steps for o in outs):
+            raise RuntimeError(f"batch {b}: a request returned other than {args.steps} tokens")
+        outputs.append(outs)
+        stats.append(st)
+        log(f"{b:5d}  {st.policy:30s} {st.latency:7.3f} {st.p50:7.3f} {st.p99:7.3f} {st.cost:7.3f}")
+    return ServeRun(
+        model, params, server, requests, outputs, stats, prefill_s, decode_s, int(nonfinite) == 0
+    )
+
+
+def main(argv=None) -> None:
+    run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,182 @@
+"""Grouped-query attention (MHA / GQA / MQA) with optional qk-norm, QKV bias
+and partial rotary embeddings, in PyTorch.
+
+Counterpart of `repro.models.attention`.  Paths share one parameterization:
+  * `attend_full`   — prefill over a whole sequence.  impl="kernel" calls
+    the hand-written CUDA flash kernel (`repro_torch.kernels.
+    flash_attention`; its plain version on the CPU) and is the port's
+    counterpart of the reference's impl="pallas"; impl="chunked" is the
+    online-softmax loop over KV blocks; impl="ref" materializes the scores.
+  * `attend_decode` — one query token against a KV cache.
+Softmax math in float32, with the reference's casts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .common import Init, apply_rope, rms_norm
+
+NEG_INF = -(2.0**30)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    causal: bool = True
+    use_rope: bool = True
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+
+def init_attention(init: Init, spec: AttentionSpec):
+    with init.scope("attn"):
+        init.param("wq", (spec.d_model, spec.q_dim))
+        init.param("wk", (spec.d_model, spec.kv_dim))
+        init.param("wv", (spec.d_model, spec.kv_dim))
+        init.param("wo", (spec.q_dim, spec.d_model))
+        if spec.qkv_bias:
+            init.param("bq", (spec.q_dim,), init="zeros")
+            init.param("bk", (spec.kv_dim,), init="zeros")
+            init.param("bv", (spec.kv_dim,), init="zeros")
+        if spec.qk_norm:
+            init.param("q_norm", (spec.head_dim,), init="ones")
+            init.param("k_norm", (spec.head_dim,), init="ones")
+
+
+def _project_qkv(params, spec: AttentionSpec, x, positions):
+    B, S, _ = x.shape
+    q = torch.matmul(x, params["attn/wq"])
+    k = torch.matmul(x, params["attn/wk"])
+    v = torch.matmul(x, params["attn/wv"])
+    if spec.qkv_bias:
+        q = q + params["attn/bq"]
+        k = k + params["attn/bk"]
+        v = v + params["attn/bv"]
+    q = q.reshape(B, S, spec.n_heads, spec.head_dim)
+    k = k.reshape(B, S, spec.n_kv_heads, spec.head_dim)
+    v = v.reshape(B, S, spec.n_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = rms_norm(q, params["attn/q_norm"])
+        k = rms_norm(k, params["attn/k_norm"])
+    if spec.use_rope:
+        q = apply_rope(q, positions, spec.rope_theta, spec.rope_fraction)
+        k = apply_rope(k, positions, spec.rope_theta, spec.rope_fraction)
+    return q, k, v
+
+
+def _expand_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _scale(head_dim: int) -> float:
+    return 1.0 / math.sqrt(head_dim)
+
+
+def _sdpa_ref(q, k, v, causal: bool, q_offset: int = 0):
+    """(B,Sq,H,D) x (B,Sk,H,D) -> (B,Sq,H,D), scores materialized (oracle)."""
+    Sq, D = q.shape[1], q.shape[3]
+    Sk = k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * _scale(D)
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(Sk, device=q.device)[None, :]
+        scores = torch.where(ki <= qi, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
+def _sdpa_chunked(q, k, v, causal: bool, block: int = 512):
+    """Online softmax over KV blocks: per-step memory O(B·H·Sq·block)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    nb = -(-Sk // block)
+    pad = nb * block - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = _scale(D)
+    dev = q.device
+    qi = torch.arange(Sq, device=dev)[:, None]
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    m_run = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l_run = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    for j in range(nb):
+        kj = k[:, j * block:(j + 1) * block]
+        vj = v[:, j * block:(j + 1) * block]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kj).float() * scale
+        ki = j * block + torch.arange(block, device=dev)[None, :]
+        mask = ki < Sk
+        if causal:
+            mask = mask & (ki <= qi)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vj.float())
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def attend_full(params, spec: AttentionSpec, x, positions, impl: str = "kernel"):
+    """Full-sequence attention (prefill).  Returns (out, (k, v))."""
+    q, k, v = _project_qkv(params, spec, x, positions)
+    n_rep = spec.n_heads // spec.n_kv_heads
+    ke, ve = _expand_kv(k, n_rep), _expand_kv(v, n_rep)
+    if impl == "ref":
+        out = _sdpa_ref(q, ke, ve, spec.causal)
+    elif impl == "chunked":
+        out = _sdpa_chunked(q, ke, ve, spec.causal)
+    elif impl == "kernel":
+        from ..kernels import ops as kops
+
+        out = kops.flash_attention(q.contiguous(), ke.contiguous(), ve.contiguous(), causal=spec.causal)
+    else:
+        raise ValueError(impl)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, spec.q_dim)
+    return torch.matmul(out, params["attn/wo"]), (k, v)
+
+
+def attend_decode(params, spec: AttentionSpec, x, cache_k, cache_v, position: int):
+    """One-token decode.  x: (B,1,d); cache_{k,v}: (B,S_max,KV,D) with valid
+    entries < position.  Returns (out, new_k, new_v): new caches with the
+    token's k and v written at `position` (the inputs are not modified)."""
+    B = x.shape[0]
+    pos = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(params, spec, x, pos)
+    ck = cache_k.clone()
+    cv = cache_v.clone()
+    ck[:, position:position + 1] = k_new.to(ck.dtype)
+    cv[:, position:position + 1] = v_new.to(cv.dtype)
+    n_rep = spec.n_heads // spec.n_kv_heads
+    ke, ve = _expand_kv(ck, n_rep), _expand_kv(cv, n_rep)
+    S = ck.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, ke).float() * _scale(spec.head_dim)
+    valid = (torch.arange(S, device=x.device) <= position)[None, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(x.dtype), ve)
+    out = out.reshape(B, 1, spec.q_dim)
+    return torch.matmul(out, params["attn/wo"]), ck, cv

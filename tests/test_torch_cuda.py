@@ -8,7 +8,11 @@ machine with a card and no JAX it runs on its own:
 
 Tolerances: kw_queue slots exact and floats rtol = atol = 1e-5 (the kernel
 does the plain version's IEEE operations, so it is expected to be exact);
-residual_sample max exact and sum rtol 1e-5 (another summation order).
+residual_sample max exact and sum rtol 1e-5 (another summation order);
+flash_attention and ssd_scan at the JAX package's own kernel tolerances
+(tests/test_kernels.py): flash 2e-5 in float32 and 2e-2 in bfloat16, ssd
+1e-3 in float32 and atol 2e-1 / rtol 5e-2 in bfloat16 (both sides sum in
+float32 in another order; bfloat16 outputs round once more).
 """
 
 import numpy as np
@@ -18,8 +22,10 @@ import torch
 from repro_torch.core import Empirical, SingleForkPolicy
 from repro_torch.fleet import vector
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.kw_queue import kw_queue_plain
 from repro_torch.kernels.residual_sampler import residual_sample_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +93,83 @@ def test_frontier_on_card_agrees_with_the_cpu_path():
         assert abs(a["mean_sojourn"] - b["mean_sojourn"]) / sigma < 5.0
     res = vector.trace_kill_rollout(x, pols[2], 0.3, 8, 200, 24, c=3, device=dev)
     assert np.isfinite(res.mean_sojourn)
+
+
+# (B, S, H, D, causal, dtype): tests/test_kernels.py's FLASH_CASES, then the
+# shape of one Zamba2-1.2B prefill of 1024 tokens
+FLASH_CASES = [
+    (2, 256, 4, 64, True, torch.float32),
+    (1, 512, 2, 128, True, torch.float32),
+    (2, 200, 4, 64, True, torch.float32),
+    (1, 128, 8, 64, False, torch.float32),
+    (2, 256, 4, 64, True, torch.bfloat16),
+    (1, 384, 4, 256, True, torch.bfloat16),
+    (1, 96, 2, 80, True, torch.float32),
+    (1, 1024, 32, 64, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,H,D,causal,dtype", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_on_card(B, S, H, D, causal, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype) for _ in range(3))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_refuses_head_dims_it_was_not_built_for():
+    dev = _card()
+    q = torch.randn((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, q, q)
+
+
+# (Bt, S, H, P, G, N, chunk, dtype): tests/test_kernels.py's SSD_CASES, then
+# the shape of one Zamba2-1.2B SSM layer's prefill of 1024 tokens
+SSD_CASES = [
+    (2, 256, 4, 32, 1, 16, 64, torch.float32),
+    (1, 128, 8, 64, 1, 64, 128, torch.float32),
+    (1, 100, 4, 16, 2, 8, 32, torch.float32),
+    (2, 192, 4, 32, 4, 16, 64, torch.float32),
+    (1, 256, 4, 64, 1, 128, 128, torch.bfloat16),
+    (1, 1024, 64, 64, 1, 64, 128, torch.bfloat16),
+]
+
+
+def _ssd_inputs(Bt, S, H, P, G, N, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((Bt, S, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((Bt, S, H), generator=g, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+    B = torch.randn((Bt, S, G, N), generator=g, device=dev).to(dtype)
+    C = torch.randn((Bt, S, G, N), generator=g, device=dev).to(dtype)
+    return x, dt, A, B, C, torch.ones((H,), device=dev)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,dtype", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain_on_card(Bt, S, H, P, G, N, chunk, dtype):
+    dev = _card()
+    args = _ssd_inputs(Bt, S, H, P, G, N, dtype, dev)
+    before = ops.ssd_scan.launches
+    y, h = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32 and h.shape == (Bt, H, P, N)
+    y_p, h_p = ssd_scan_plain(*args, chunk=chunk)
+    atol, rtol = (2e-1, 5e-2) if dtype == torch.bfloat16 else (1e-3, 1e-3)
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, h_p, rtol=rtol, atol=atol)
+
+
+def test_ssd_scan_kernel_refuses_widths_it_does_not_take():
+    dev = _card()
+    args = _ssd_inputs(1, 16, 2, 256, 1, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="up to"):
+        ops.ssd_scan(*args, chunk=16)

@@ -98,3 +98,74 @@ def test_residual_sample_wrapper_refuses_what_the_kernel_does_not_take():
         ops.residual_sample(u, xs[None])
     with pytest.raises(ValueError, match="device"):
         ops.residual_sample(u.to("meta"), xs.to("meta"))
+
+
+def test_serving_entry_points_default_to_the_card_and_never_fall_back(monkeypatch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import OnlinePolicyController, optimize
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import build_model
+    from repro_torch.runtime import HedgedServer, SimCluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).exponential(1.0, 50) + 1.0
+    calls = [
+        lambda: serve.run(serve.parse_args(["--reduced", "--batches", "1", "--requests", "2"])),
+        lambda: build_model(get_reduced("zamba2-1.2b")).init(),
+        lambda: HedgedServer(SimCluster(8, ShiftedExp(1.0, 1.0)), lambda r: r),
+        lambda: OnlinePolicyController(),
+        lambda: optimize.bootstrap_evaluator(x, m=10)(SingleForkPolicy(0.1, 1, True)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.randn(1, 8, 2, 64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="is torch.bfloat16, q is torch.float32"):
+        ops.flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\(B, S, H, D\)"):
+        ops.flash_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="must share B, H and D"):
+        ops.flash_attention(q, torch.randn(1, 8, 2, 32), torch.randn(1, 8, 2, 32))
+    with pytest.raises(ValueError, match="must share B, H and D"):
+        ops.flash_attention(q, q, torch.randn(1, 9, 2, 64))
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take():
+    Bt, S, H, P, G, N = 1, 10, 4, 8, 2, 4
+    x = torch.randn(Bt, S, H, P)
+    dt, A, D = torch.rand(Bt, S, H), -torch.rand(H), torch.ones(H)
+    B, C = torch.randn(Bt, S, G, N), torch.randn(Bt, S, G, N)
+    ok = (x, dt, A, B, C, D)
+
+    def bad(i, t):
+        return tuple(t if j == i else a for j, a in enumerate(ok))
+
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.ssd_scan(*bad(0, x.double()))
+    with pytest.raises(TypeError, match="B is torch.bfloat16"):
+        ops.ssd_scan(*bad(3, B.to(torch.bfloat16)))
+    with pytest.raises(TypeError, match="dt must be float32"):
+        ops.ssd_scan(*bad(1, dt.to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(*bad(0, x.transpose(2, 3).contiguous().transpose(2, 3)))
+    with pytest.raises(ValueError, match="dt must be"):
+        ops.ssd_scan(*bad(1, dt[:, :5].contiguous()))
+    with pytest.raises(ValueError, match="A and D"):
+        ops.ssd_scan(*bad(2, A[:3].contiguous()))
+    with pytest.raises(ValueError, match="one \\(Bt, S, G, N\\) shape"):
+        ops.ssd_scan(*bad(4, torch.randn(Bt, S, G, N + 1)))
+    with pytest.raises(ValueError, match="multiple of G"):
+        ops.ssd_scan(x, dt, A, torch.randn(Bt, S, 3, N), torch.randn(Bt, S, 3, N), D)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(*ok, chunk=0)
+    with pytest.raises(ValueError, match="device"):
+        ops.ssd_scan(*(t.to("meta") for t in ok))

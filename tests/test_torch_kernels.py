@@ -3,7 +3,11 @@
 On the CPU the wrappers take their plain PyTorch versions, which are held
 to the reference's oracles (`repro.kernels.ref`) and to the Pallas kernels
 in interpret mode, on the cases of tests/test_kernels.py: kw_queue slots
-exactly and floats to 1e-5; residual_sample max to 1e-6 and sum to 1e-5.
+exactly and floats to 1e-5; residual_sample max to 1e-6 and sum to 1e-5;
+flash_attention at that file's tolerances (2e-5 in float32, 2e-2 in
+bfloat16); ssd_scan at its tolerances (1e-3 in float32; atol 2e-1, rtol
+5e-2 in bfloat16, where the reference's chunked path rounds its
+intermediates to bfloat16 and the kernels do not).
 The CUDA kernels themselves are held to these plain versions on the card
 by tests/test_torch_cuda.py and by chip_smoke.py.
 """
@@ -17,10 +21,13 @@ import torch
 from repro.fleet.vector import lindley as jlindley
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models.ssm import ssd_chunked as jssd_chunked
 from repro_torch.fleet.vector import lindley
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.kw_queue import kw_queue_plain
 from repro_torch.kernels.residual_sampler import residual_sample_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 KW_CASES = [(4, 37, 1), (8, 64, 3), (13, 48, 4), (1, 200, 2)]
 
@@ -115,7 +122,7 @@ def test_residual_sample_is_min_of_replicas_distribution():
 
 def test_build_commands_target_hopper_without_fast_math(tmp_path):
     compiles, link, lib = build.compile_commands("nvcc", tmp_path)
-    assert len(compiles) == len(build.sources()) == 2  # one nvcc per source
+    assert len(compiles) == len(build.sources()) == 4  # one nvcc per source
     for cmd in (*compiles, link):
         assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
         assert not any("fast" in part for part in cmd)
@@ -130,3 +137,82 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="kernel build failed"):
         build.load_library()
     assert build._lib is None
+
+
+# tests/test_kernels.py's FLASH_CASES: (B, S, H, D, causal, dtype, block_q, block_k)
+FLASH_CASES = [
+    (2, 256, 4, 64, True, "float32", 128, 128),
+    (1, 512, 2, 128, True, "float32", 128, 128),
+    (2, 200, 4, 64, True, "float32", 128, 128),
+    (1, 128, 8, 64, False, "float32", 64, 64),
+    (2, 256, 4, 64, True, "bfloat16", 128, 128),
+    (1, 384, 4, 256, True, "bfloat16", 128, 128),
+    (1, 96, 2, 80, True, "float32", 32, 32),
+]
+
+
+def _to_torch(a, dtype):
+    """A JAX array as a torch tensor of the same values and `dtype`."""
+    return torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("B,S,H,D,causal,dtype,bq,bk", FLASH_CASES)
+def test_flash_attention_plain_matches_reference_and_pallas(B, S, H, D, causal, dtype, bq, bk):
+    rng = np.random.default_rng(S + D)
+    q, k, v = (jnp.asarray(rng.standard_normal((B, S, H, D), np.float32), getattr(jnp, dtype)) for _ in range(3))
+    got = flash_attention_plain(*(_to_torch(a, dtype) for a in (q, k, v)), causal=causal)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, S, H, D)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for want in (jref.flash_attention_ref(q, k, v, causal=causal),
+                 jops.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
+    before = ops.flash_attention.launches
+    again = ops.flash_attention(*(_to_torch(a, dtype) for a in (q, k, v)), causal=causal)
+    assert torch.equal(again, got) and ops.flash_attention.launches == before
+    assert ref.flash_attention_ref is flash_attention_plain
+
+
+# tests/test_kernels.py's SSD_CASES: (Bt, S, H, P, G, N, chunk, dtype)
+SSD_CASES = [
+    (2, 256, 4, 32, 1, 16, 64, "float32"),
+    (1, 128, 8, 64, 1, 64, 128, "float32"),
+    (1, 100, 4, 16, 2, 8, 32, "float32"),
+    (2, 192, 4, 32, 4, 16, 64, "float32"),
+    (1, 256, 4, 64, 1, 128, 128, "bfloat16"),
+]
+
+
+def _ssd_inputs(Bt, S, H, P, G, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Bt, S, H, P), np.float32)
+    dt = np.logaddexp(rng.standard_normal((Bt, S, H)), 0.0).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H) * 0.3).astype(np.float32)
+    B = rng.standard_normal((Bt, S, G, N), np.float32)
+    C = rng.standard_normal((Bt, S, G, N), np.float32)
+    return x, dt, A, B, C, np.ones(H, np.float32)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,dtype", SSD_CASES)
+def test_ssd_scan_plain_matches_pallas_and_chunked(Bt, S, H, P, G, N, chunk, dtype):
+    x, dt, A, B, C, D = _ssd_inputs(Bt, S, H, P, G, N)
+    jdt = getattr(jnp, dtype)
+    jx, jB, jC = (jnp.asarray(a, jdt) for a in (x, B, C))
+    y, h = ssd_scan_plain(_to_torch(jx, dtype), torch.from_numpy(dt), torch.from_numpy(A),
+                          _to_torch(jB, dtype), _to_torch(jC, dtype), torch.from_numpy(D), chunk=chunk)
+    assert y.dtype == getattr(torch, dtype) and h.dtype == torch.float32
+    atol, rtol = (2e-1, 5e-2) if dtype == "bfloat16" else (1e-3, 1e-3)
+    j_args = (jx, jnp.asarray(dt), jnp.asarray(A), jB, jC, jnp.asarray(D))
+    for y_r, h_r in (jops.ssd_scan(*j_args, chunk=chunk), jax.jit(jssd_chunked, static_argnums=6)(*j_args, chunk)):
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(y_r, np.float32), atol=atol, rtol=rtol)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_r), atol=atol, rtol=rtol)
+    assert ref.ssd_scan_ref is ssd_scan_plain
+
+
+def test_ssd_scan_plain_matches_the_recurrence():
+    """The plain scan against the reference's literal O(S) recurrence, with
+    a ragged last chunk: the masked steps leave h_final as zero padding."""
+    x, dt, A, B, C, D = _ssd_inputs(2, 70, 4, 16, 2, 8, seed=3)
+    y, h = ssd_scan_plain(*map(torch.from_numpy, (x, dt, A, B, C, D)), chunk=32)
+    y_r, h_r = jref.ssd_recurrence_ref(*map(jnp.asarray, (x, dt, A, B, C, D)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_r), atol=2e-3, rtol=1e-3)
