@@ -70,6 +70,16 @@ SSD_CASES = (
     (1, 100, 4, 16, 2, 8, 32, "float32"), (2, 192, 4, 32, 4, 16, 64, "float32"),
     (1, 256, 4, 64, 1, 128, 128, "bfloat16"),
 )
+#: bf16 shapes of the tensor-core kernels' other paths: ragged, non-causal,
+#: D = 80 / 128; G > 1 with a ragged chunk, P = N = 128, one chunk
+FLASH_BF16_CASES = (
+    (2, 200, 4, 64, True, "bfloat16"), (1, 256, 4, 64, False, "bfloat16"),
+    (1, 200, 2, 80, True, "bfloat16"), (2, 320, 2, 128, True, "bfloat16"),
+)
+SSD_BF16_CASES = (
+    (1, 100, 4, 16, 2, 8, 32, "bfloat16"), (1, 300, 2, 128, 1, 128, 128, "bfloat16"),
+    (1, 128, 8, 64, 1, 64, 128, "bfloat16"),
+)
 
 FULL = dict(
     n=1026, c=4, n_jobs=2048, m_trials=16,
@@ -78,7 +88,7 @@ FULL = dict(
     # one Zamba2-1.2B prefill of 1024 tokens: attention (B, S, H, D) and
     # SSM (Bt, S, H, P, G, N, chunk), both bf16
     flash_shape=(1, 1024, 32, 64), ssd_shape=(1, 1024, 64, 64, 1, 64, 128),
-    flash_cases=FLASH_CASES, ssd_cases=SSD_CASES,
+    flash_cases=FLASH_CASES + FLASH_BF16_CASES, ssd_cases=SSD_CASES + SSD_BF16_CASES,
     serve=dict(arch="zamba2-1.2b", reduced=False, requests=8, batches=2, prompt=1024, steps=32),
 )
 
@@ -211,7 +221,7 @@ def _close(torch, got, want, rtol, atol, what) -> float:
 def flash_kernel_cases(torch, device, sizes, g, flush) -> list:
     """flash_attention against its plain version: the serve shape (first,
     timed, with the bound and scaled_dot_product_attention's time), then
-    the FLASH_CASES."""
+    `sizes["flash_cases"]` (FLASH_CASES and FLASH_BF16_CASES at full size)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     B, S, H, D = sizes["flash_shape"]
@@ -241,8 +251,9 @@ def flash_kernel_cases(torch, device, sizes, g, flush) -> list:
 
 def ssd_kernel_cases(torch, device, sizes, g, flush) -> list:
     """ssd_scan against its plain version: the serve shape (first, timed,
-    with the bound), then the SSD_CASES."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    with the bound and the CUDA launches per call), then
+    `sizes["ssd_cases"]` (SSD_CASES and SSD_BF16_CASES at full size)."""
+    from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES, ssd_scan, ssd_scan_plain
 
     cases = []
     for i, (bt, s, h, p, gr, n, q, dt) in enumerate(((*sizes["ssd_shape"], "bfloat16"), *sizes["ssd_cases"])):
@@ -267,7 +278,7 @@ def ssd_kernel_cases(torch, device, sizes, g, flush) -> list:
             case.update(
                 ms=time_ms(torch, lambda: ssd_scan(*args, chunk=q), sizes["kernel_reps"], device, flush, ahead=True),
                 plain_ms=time_ms(torch, lambda: ssd_scan_plain(*args, chunk=q), sizes["plain_reps"], device),
-                library_ms=None,
+                library_ms=None, cuda_launches_per_call=CUDA_LAUNCHES[dtype],
                 bound=bound(2 * bt * s * h * p * elt + 2 * bt * s * gr * n * elt + bt * s * h * 4
                             + 2 * h * 4 + bt * h * p * n * 4, 2 * macs,
                             BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S),

@@ -3,10 +3,11 @@
 Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
 together, for `sm_90a` (Hopper) with `-O3` and without fast math; the
 objects are linked into one library with a plain C interface, loaded with
-`ctypes`.  The library's name carries a hash of the sources and flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.  The
-output goes to `build/kernels/` at the root of the checkout, or to
-`$REPRO_TORCH_BUILD_DIR`.  A failed build raises.
+`ctypes`.  The library's name carries a hash of the sources, the headers
+they share (`csrc/*.cuh`) and the flags, so a changed file is rebuilt and
+an unchanged one is loaded as it is.  The output goes to `build/kernels/`
+at the root of the checkout, or to `$REPRO_TORCH_BUILD_DIR`.  A failed
+build raises.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     """nvcc from $CUDA_HOME, the PATH, or the toolkit's default prefix."""
     candidates = []
@@ -65,7 +70,7 @@ def compile_commands(nvcc: str, out: Path) -> tuple[list[list[str]], list[str], 
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in (*sources(), *headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -104,9 +109,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.residual_sample_launch.restype = i
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p, i]
     lib.flash_attention_launch.restype = i
-    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i]
+    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i]
     lib.ssd_scan_launch.restype = i
-    lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
 
 

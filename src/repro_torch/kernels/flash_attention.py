@@ -7,13 +7,17 @@ masked with NEG_INF = -2**30 (not -inf) where a key lies past the keys'
 length or, with `causal`, after the query (positions count from 0 for both),
 softmax in float32, and the output is stored in the inputs' type.
 
-The kernel (`csrc/flash_attention.cu`) reads the (B, S, H, D) layout by
-strides and masks ragged ends itself, so no transposed or padded copies are
-made; with `causal` its loop over key tiles stops at the diagonal.  Head
-dims 64, 80, 128 and 256 are compiled.  Bound on an H100 at the serve
-shape (1, 1024, 32, 64), causal, bf16: 16.8 MB moved, 5.0 µs at 3.35 TB/s,
-against 4.3 GFLOP; the kernel does its products in float32 on the CUDA
-cores, so the FP32 rate and shared-memory reads bound it (see the source).
+The kernels (`csrc/flash_attention.cu`) read the (B, S, H, D) layout by
+strides and mask ragged ends themselves, so no transposed or padded copies
+are made; with `causal` the loop over key tiles stops at the diagonal.
+Head dims 64, 80, 128 and 256 are compiled.  Bfloat16 inputs (what serving
+runs) take a tensor-core kernel: bf16 products with float32 accumulators,
+K and V tiles copied asynchronously, P rounded to bf16 before P·V (as
+FlashAttention-2/3 do; the TPU kernel keeps P in float32), heaviest query
+tiles first.  Float32 inputs take a kernel with float32 products on the
+CUDA cores.  Bound on an H100 at the serve shape (1, 1024, 32, 64),
+causal, bf16: 16.8 MB moved, 5.0 µs at 3.35 TB/s, against 4.3 GFLOP, 4.3
+µs at the bf16 tensor-core rate (see the source and PERF.md).
 
 `flash_attention` takes the plain version only for tensors on the CPU.  For
 a CUDA tensor it launches the kernel or raises.  `flash_attention.launches`

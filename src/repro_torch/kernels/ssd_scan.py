@@ -1,25 +1,28 @@
-"""Mamba2 SSD chunked scan: CUDA kernel and plain version.
+"""Mamba2 SSD chunked scan: CUDA kernels and plain version.
 
 Replaces the TPU kernel `src/repro/kernels/ssd_scan.py::ssd_scan` (Pallas
 body `_kernel`).  x: (Bt, S, H, P), dt: (Bt, S, H) float32, A, D: (H,)
 float32, B, C: (Bt, S, G, N) in x's type.  Per chunk of `chunk` steps, with
 cs = cumsum(dt·A): y = (C·Bᵀ ⊙ exp(cs_i - cs_j)[j<=i] ⊙ dt)·x + exp(cs)·C·h
 + D·x, and the state h (P × N, float32) is carried across chunks from
-zero.  Returns y in x's type and h_final (Bt, H, P, N) float32, all
-arithmetic in float32.
+zero.  Returns y in x's type and h_final (Bt, H, P, N) float32, sums in
+float32.
 
-The kernel (`csrc/ssd_scan.cu`) gives one block to each (batch row, head)
-and loops over the chunks with h in shared memory; it indexes the group of
-B and C for each head and masks the ragged last chunk, where the TPU
-wrapper made per-head copies and padded.  Bound on an H100 at the serve
-shape (1, 1024, 64, 64), N = 64, chunk 128, bf16: about 18 MB moved, 5.5
-µs at 3.35 TB/s; the grid has only B·H = 64 blocks for 132 SMs, and each
-walks its chunks in order in float32, so the kernel is bound by its
-parallelism (see the source).
+The kernels (`csrc/ssd_scan.cu`) index the group of B and C for each head
+and mask the ragged last chunk, where the TPU wrapper made per-head copies
+and padded.  For bfloat16 inputs (what serving runs) the chunks run in
+parallel, in two CUDA launches per call: the chunks' own states into a
+float32 scratch tensor that this wrapper allocates, then each chunk's
+outputs after the short recurrence over the states before it; products on
+the tensor cores, each float32 operand split into two bf16 parts.  Float32
+inputs take one launch of a block per (batch row, head) that walks its
+chunks in order on the CUDA cores.  Bound on an H100 at the serve shape
+(1, 1024, 64, 64), N = 64, chunk 128, bf16: about 18 MB moved, 5.5 µs at
+3.35 TB/s (see the source and PERF.md).
 
 `ssd_scan` takes the plain version only for tensors on the CPU.  For a
-CUDA tensor it launches the kernel or raises.  `ssd_scan.launches` counts
-the kernel launches.
+CUDA tensor it launches the kernels or raises.  `ssd_scan.launches` counts
+the wrapper's calls that launched (each `CUDA_LAUNCHES[dtype]` kernels).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ SMEM_LIMIT = 232448
 MAX_CHUNK = 128
 MAX_WIDTH = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: CUDA kernel launches per call of the wrapper, by x's dtype
+CUDA_LAUNCHES = {torch.float32: 1, torch.bfloat16: 2}
 
 
 def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 128):
@@ -123,7 +128,8 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
     from .build import load_library
 
     lib = load_library()
-    smem = lib.ssd_scan_smem_bytes(chunk, P, N)
+    dtype = _DTYPES[x.dtype]
+    smem = lib.ssd_scan_smem_bytes(chunk, P, N, dtype)
     if not 0 < smem <= SMEM_LIMIT:
         raise ValueError(
             f"ssd_scan: chunk={chunk}, P={P}, N={N} needs {smem} bytes of shared memory "
@@ -131,11 +137,15 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
         )
     y = torch.empty_like(x)
     h_final = torch.empty((Bt, H, P, N), dtype=torch.float32, device=dev)
+    # the chunk states and decays of the two-launch bf16 path
+    nc = -(-S // chunk)
+    n_scratch = Bt * nc * H * (P * N + 1) if dtype else 0
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-        y.data_ptr(), h_final.data_ptr(), Bt, S, H, P, G, N, chunk, _DTYPES[x.dtype], stream,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        y.data_ptr(), h_final.data_ptr(), scratch.data_ptr(), Bt, S, H, P, G, N, chunk, dtype,
+        stream, dev.index if dev.index is not None else torch.cuda.current_device(),
     )
     if err != 0:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")

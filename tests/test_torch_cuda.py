@@ -173,3 +173,109 @@ def test_ssd_scan_kernel_refuses_widths_it_does_not_take():
     args = _ssd_inputs(1, 16, 2, 256, 1, 8, torch.float32, dev)
     with pytest.raises(ValueError, match="up to"):
         ops.ssd_scan(*args, chunk=16)
+
+
+# (B, Sq, Sk, H, D, causal): shapes that only the bf16 tensor-core kernel's
+# ragged, non-causal, D = 80 / 128 / 256 and Sq != Sk paths reach
+FLASH_BF16_CASES = [
+    (2, 200, 200, 4, 64, True),
+    (1, 256, 256, 4, 64, False),
+    (1, 200, 200, 2, 80, True),
+    (2, 320, 320, 2, 128, True),
+    (1, 300, 300, 2, 256, False),
+    (1, 96, 200, 4, 64, False),
+    (1, 200, 96, 4, 64, True),
+    (1, 64, 1000, 2, 128, True),
+]
+
+
+def _flash_check(q, k, v, causal, tol):
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", FLASH_BF16_CASES)
+def test_flash_attention_bf16_tensor_core_cases_on_card(B, Sq, Sk, H, D, causal):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + D)
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, Sk, H, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    _flash_check(q, k, v, causal, 2e-2)
+
+
+def test_flash_attention_bf16_reads_unaligned_inputs_on_card():
+    """Contiguous views that start 2 bytes past a 16-byte boundary take the
+    kernel's element-by-element copies instead of cp.async."""
+    dev = _card()
+    shape = (1, 130, 2, 64)
+    n = int(np.prod(shape))
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(n + 1, generator=g, device=dev).bfloat16()[1:].view(shape)
+               for _ in range(3))
+    assert q.data_ptr() % 16 != 0
+    _flash_check(q, k, v, True, 2e-2)
+
+
+def test_float32_inputs_keep_the_exact_paths_on_card():
+    """float32 at the serve shapes goes through the CUDA-core kernels, at
+    2e-5 (flash) and 1e-3 (ssd)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 1024, 32, 64), generator=g, device=dev) for _ in range(3))
+    _flash_check(q, k, v, True, 2e-5)
+    args = _ssd_inputs(1, 1024, 64, 64, 1, 64, torch.float32, dev)
+    _ssd_check(args, 128, 1e-3, 1e-3)
+
+
+def _ssd_check(args, chunk, atol, rtol):
+    x = args[0]
+    Bt, S, H, P = x.shape
+    N = args[3].shape[3]
+    before = ops.ssd_scan.launches
+    y, h = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1  # one per call, whatever the CUDA launches
+    assert y.dtype == x.dtype and h.dtype == torch.float32 and h.shape == (Bt, H, P, N)
+    y_p, h_p = ssd_scan_plain(*args, chunk=chunk)
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, h_p, rtol=rtol, atol=atol)
+
+
+# (Bt, S, H, P, G, N, chunk): the bf16 chunk-parallel kernels with G > 1
+# and a ragged last chunk, chunk 64, N = 128, P = N = 128, one chunk,
+# widths that are not multiples of 8 (element-by-element copies) or 16
+# (zero-padded tiles)
+SSD_BF16_CASES = [
+    (1, 100, 4, 16, 2, 8, 32),
+    (2, 192, 4, 32, 4, 16, 64),
+    (1, 256, 4, 64, 1, 128, 128),
+    (1, 300, 2, 128, 1, 128, 128),
+    (1, 128, 8, 64, 1, 64, 128),
+    (2, 90, 6, 20, 3, 12, 48),
+    (1, 1000, 4, 64, 2, 64, 100),
+]
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", SSD_BF16_CASES)
+def test_ssd_scan_bf16_chunk_parallel_cases_on_card(Bt, S, H, P, G, N, chunk):
+    dev = _card()
+    _ssd_check(_ssd_inputs(Bt, S, H, P, G, N, torch.bfloat16, dev, seed=S + P), chunk, 2e-1, 5e-2)
+
+
+def test_ssd_scan_bf16_reads_unaligned_inputs_on_card():
+    dev = _card()
+    x, dt, A, B, C, D = _ssd_inputs(1, 200, 4, 64, 1, 64, torch.bfloat16, dev)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    x, B, C = shifted(x), shifted(B), shifted(C)
+    assert x.data_ptr() % 16 != 0
+    _ssd_check((x, dt, A, B, C, D), 64, 2e-1, 5e-2)

@@ -216,3 +216,165 @@ def test_ssd_scan_plain_matches_the_recurrence():
     y_r, h_r = jref.ssd_recurrence_ref(*map(jnp.asarray, (x, dt, A, B, C, D)))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_r), atol=2e-3, rtol=1e-3)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_r), atol=2e-3, rtol=1e-3)
+
+
+def test_build_tag_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """A changed `csrc/*.cuh` changes the library's tag, so the build does
+    not load a library compiled against the old header."""
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("#define X 1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.headers() == [tmp_path / "b.cuh"]
+    before = build._tag()
+    (tmp_path / "b.cuh").write_text("#define X 2\n")
+    assert build._tag() != before
+    (tmp_path / "b.cuh").write_text("#define X 1\n")
+    assert build._tag() == before
+
+
+# The bf16 CUDA kernels' roundings, emulated in plain PyTorch on the CPU and
+# held to the reference at the bf16 tolerances above.  flash_attention: an
+# online softmax over key tiles of 64 rows (32 at D = 256) with P rounded
+# to bf16 before P·V, float32 accumulators, l summing the float32 p.
+# ssd_scan: every product with a float32 operand takes that operand as
+# hi + lo, hi = bf16(v), lo = bf16(v - hi): the gated scores (times x), the
+# weighted x of the chunk states (times B) and the carried state (times C).
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(t):
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def flash_bf16_emulated(q, k, v, *, causal=True):
+    """The bf16 flash kernel's arithmetic on (B, S, H, D) tensors."""
+    Sq, D = q.shape[1], q.shape[3]
+    Sk = k.shape[1]
+    block = 64 if D <= 128 else 32
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    m = torch.full(qf.shape[:3], -(2.0**30))
+    l = torch.zeros(qf.shape[:3])
+    acc = torch.zeros(qf.shape)
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, block):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block]) / D**0.5
+        if causal:
+            s = torch.where(torch.arange(k0, min(k0 + block, Sk))[None, :] <= rows, s, -(2.0**30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bhkd->bhqd", _bf16(p), vf[:, :, k0:k0 + block])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+
+
+# (B, Sq, Sk, H, D, causal, block_q, block_k): the bf16 FLASH_CASES, then
+# shapes that only the bf16 kernel's ragged, non-causal, D = 80 / 128 and
+# Sq != Sk paths reach
+FLASH_BF16_CASES = [
+    (2, 256, 256, 4, 64, True, 128, 128),
+    (1, 384, 384, 4, 256, True, 128, 128),
+    (2, 200, 200, 4, 64, True, 128, 128),
+    (1, 128, 128, 4, 64, False, 64, 64),
+    (1, 96, 96, 2, 80, True, 32, 32),
+    (1, 192, 192, 2, 128, True, 64, 64),
+    (1, 96, 160, 2, 64, False, 32, 32),
+    (1, 160, 96, 2, 64, True, 32, 32),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,bq,bk", FLASH_BF16_CASES)
+def test_flash_bf16_kernel_roundings_match_reference_and_pallas(B, Sq, Sk, H, D, causal, bq, bk):
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = jnp.asarray(rng.standard_normal((B, Sq, H, D), np.float32), jnp.bfloat16)
+    k, v = (jnp.asarray(rng.standard_normal((B, Sk, H, D), np.float32), jnp.bfloat16)
+            for _ in range(2))
+    got = flash_bf16_emulated(*(_to_torch(a, "bfloat16") for a in (q, k, v)), causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, D)
+    for want in (jref.flash_attention_ref(q, k, v, causal=causal),
+                 jops.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
+def ssd_bf16_emulated(x, dt, A, B, C, D, *, chunk: int = 128):
+    """`ssd_scan_plain` with each float32 operand of a product split into
+    bf16 hi + lo, as the bf16 kernels compute it."""
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    Bf = torch.nn.functional.pad(B.float(), (0, 0, 0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(C.float(), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    xc = xf.reshape(Bt, nc, Q, H, P)
+    Bc = Bf.reshape(Bt, nc, Q, G, N).repeat_interleave(H // G, dim=3)
+    Cc = Cf.reshape(Bt, nc, Q, G, N).repeat_interleave(H // G, dim=3)
+    dth = dtf.reshape(Bt, nc, Q, H).permute(0, 1, 3, 2)
+    cs = torch.cumsum(dth * A.float()[:, None], dim=-1)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    L = torch.where(causal, torch.exp(cs[..., :, None] - cs[..., None, :]), 0.0)
+    gated = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc) * L * dth[..., None, :]
+    y = torch.einsum("bchij,bcjhp->bcihp", _split(gated), xc)
+    w = (torch.exp(cs[..., -1:] - cs) * dth).permute(0, 1, 3, 2)  # (Bt, nc, Q, H)
+    states = torch.einsum("bcjhp,bcjhn->bchpn", _split(w[..., None] * xc), Bc)
+    decay = torch.exp(cs[..., -1])
+    h = torch.zeros((Bt, H, P, N))
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    ch = torch.einsum("bcihn,bchpn->bcihp", Cc, _split(torch.stack(h_prev, dim=1)))
+    y = y + ch * torch.exp(cs).permute(0, 1, 3, 2)[..., None] + xc * D.float()[:, None]
+    return y.reshape(Bt, nc * Q, H, P)[:, :S].to(x.dtype), h
+
+
+# (Bt, S, H, P, G, N, chunk): the bf16 SSD_CASES, then G > 1 with a ragged
+# last chunk (S = 100, chunk 32), chunk 64 with G = 4, and one chunk (nc = 1)
+SSD_BF16_CASES = [
+    (1, 256, 4, 64, 1, 128, 128),
+    (1, 100, 4, 16, 2, 8, 32),
+    (2, 192, 4, 32, 4, 16, 64),
+    (1, 128, 8, 64, 1, 64, 128),
+]
+
+
+def _ssd_bf16_case(Bt, S, H, P, G, N):
+    x, dt, A, B, C, D = _ssd_inputs(Bt, S, H, P, G, N)
+    jx, jB, jC = (jnp.asarray(a, jnp.bfloat16) for a in (x, B, C))
+    t_args = (_to_torch(jx, "bfloat16"), torch.from_numpy(dt), torch.from_numpy(A),
+              _to_torch(jB, "bfloat16"), _to_torch(jC, "bfloat16"), torch.from_numpy(D))
+    return t_args, (jx, jnp.asarray(dt), jnp.asarray(A), jB, jC, jnp.asarray(D))
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", SSD_BF16_CASES)
+def test_ssd_bf16_kernel_roundings_match_pallas_and_chunked(Bt, S, H, P, G, N, chunk):
+    t_args, j_args = _ssd_bf16_case(Bt, S, H, P, G, N)
+    y, h = ssd_bf16_emulated(*t_args, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32 and h.shape == (Bt, H, P, N)
+    chunked = jax.jit(jssd_chunked, static_argnums=6)(*j_args, chunk)
+    for y_r, h_r in (jops.ssd_scan(*j_args, chunk=chunk), chunked):
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(y_r, np.float32),
+                                   atol=2e-1, rtol=5e-2)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_r), atol=2e-1, rtol=5e-2)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", SSD_BF16_CASES)
+def test_ssd_split_bf16_products_keep_float32_accuracy(Bt, S, H, P, G, N, chunk):
+    """On bf16-valued inputs held in float32 (so that no output rounding
+    hides it), the split products agree with the plain version's float32
+    products to 1e-4 relative to the largest value."""
+    t_args, _ = _ssd_bf16_case(Bt, S, H, P, G, N)
+    f_args = tuple(t.float() for t in t_args)
+    y, h = ssd_bf16_emulated(*f_args, chunk=chunk)
+    y_p, h_p = ssd_scan_plain(*f_args, chunk=chunk)
+    assert float((y - y_p).abs().max()) <= 1e-4 * float(y_p.abs().max())
+    assert float((h - h_p).abs().max()) <= 1e-4 * float(h_p.abs().max())
