@@ -10,7 +10,8 @@ JAX package.  Phases, one JSON line each:
   device    the card (nvidia-smi name, power limit), torch and CUDA versions
   build     nvcc build of every kernel of the path (csrc/*.cu), in seconds
   kernels   each kernel against its plain PyTorch version on the card at the
-            main path's shapes, with its time, its bound and the plain time
+            main path's shapes, with its time, its bound and the plain time;
+            kw_queue at loads 0.7, 0.85 and 1.2 (saturated), c = 4 and 1
   frontier  `frontier` on the Job 1 trace at full width: n=1026 tasks,
             c=4 gang blocks, 2048 jobs × 16 trials, 8 policies × 4 loads
   policy_search  the controller's inner loop at the ρ=0.7 load
@@ -83,7 +84,7 @@ SSD_BF16_CASES = (
 
 FULL = dict(
     n=1026, c=4, n_jobs=2048, m_trials=16,
-    kw_shape=(512, 2048), residual_shape=(32768, 103, 3),
+    kw_shape=(512, 2048), kw_loads=(0.7, 0.85, 1.2), residual_shape=(32768, 103, 3),
     kernel_reps=20, plain_reps=3, mc_reps=4000,
     # one Zamba2-1.2B prefill of 1024 tokens: attention (B, S, H, D) and
     # SSM (Bt, S, H, P, G, N, chunk), both bf16
@@ -110,13 +111,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int, device, flush=None, ahead=False) -> float:
+def time_ms(torch, fn, reps: int, device, flush=None, ahead=False, flush_by="read") -> float:
     """Median time of `fn` in ms.  On the card: CUDA events around each
     call; with `ahead`, all calls are enqueued behind a sleep kernel so
     that the host's launch overhead leaves no gaps (for a single kernel;
     a plain version made of many small launches is timed as it runs).
-    `flush` (a large buffer) is rewritten before each call so the inputs
-    come from device memory, not L2."""
+    `flush` (a buffer larger than L2) is read before each call so the
+    inputs come from device memory, not L2 (`flush_by="write"` rewrites it
+    instead, which leaves L2 full of dirty lines whose write-back the timed
+    call then pays for: PERF.md)."""
     if device.type != "cuda":
         times = []
         for _ in range(reps):
@@ -131,7 +134,7 @@ def time_ms(torch, fn, reps: int, device, flush=None, ahead=False) -> float:
         torch.cuda._sleep(100_000_000)
     for start, end in pairs:
         if flush is not None:
-            flush.zero_()
+            flush.zero_() if flush_by == "write" else flush.sum()
         start.record()
         fn()
         end.record()
@@ -152,6 +155,16 @@ def job1_trace():
     return x / np.mean(x)  # mean 1, as fleet.trace_workload normalises
 
 
+def kw_inputs(torch, device, g, B, J, speeds, load):
+    """(arrivals, services, speeds) of B queues of J jobs at offered `load`
+    of the slots' speed: services 0.5 + Exp(1), Poisson arrivals."""
+    sp = torch.tensor(speeds, device=device)
+    services = 0.5 + torch.empty((B, J), device=device).exponential_(generator=g)
+    lam = load * float(sp.sum()) / 1.5
+    arrivals = torch.cumsum(torch.empty((B, J), device=device).exponential_(generator=g) / lam, dim=1)
+    return arrivals, services, sp
+
+
 def phase_kernels(torch, device, sizes) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.kernels.kw_queue import kw_queue, kw_queue_plain
@@ -161,25 +174,24 @@ def phase_kernels(torch, device, sizes) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.float32, device=device) if device.type == "cuda" else None
     B, J = sizes["kw_shape"]
     kw_cases = []
-    for speeds in ([2.0, 1.0, 1.0, 0.5], [1.0]):
-        sp = torch.tensor(speeds, device=device)
-        services = 0.5 + torch.empty((B, J), device=device).exponential_(generator=g)
-        lam = 0.7 * float(sp.sum()) / 1.5  # offered load 0.7 of the slots' speed
-        arrivals = torch.cumsum(torch.empty((B, J), device=device).exponential_(generator=g) / lam, dim=1)
-        got = kw_queue(arrivals, services, sp)
-        want = kw_queue_plain(arrivals, services, sp)
-        check(torch.equal(got[3], want[3]), f"kw_queue slots equal (c={len(speeds)})")
-        err = 0.0
-        for a, b in zip(got[:3], want[:3]):
-            check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)), f"kw_queue floats (c={len(speeds)})")
-            err = max(err, float((a - b).abs().max()))
-        c = len(speeds)
-        kw_cases.append(dict(
-            B=B, J=J, c=c, max_abs_err=err,
-            ms=time_ms(torch, lambda: kw_queue(arrivals, services, sp), sizes["kernel_reps"], device, flush, ahead=True),
-            plain_ms=time_ms(torch, lambda: kw_queue_plain(arrivals, services, sp), sizes["plain_reps"], device),
-            bound=bound(B * J * 24 + c * 4, B * J * (3 + 2 * c)),
-        ))
+    for load in sizes["kw_loads"]:
+        for speeds in ([2.0, 1.0, 1.0, 0.5], [1.0]):
+            arrivals, services, sp = kw_inputs(torch, device, g, B, J, speeds, load)
+            c = len(speeds)
+            what = f"kw_queue (load {load}, c={c})"
+            got = kw_queue(arrivals, services, sp)
+            want = kw_queue_plain(arrivals, services, sp)
+            check(torch.equal(got[3], want[3]), f"{what} slots equal")
+            err = 0.0
+            for a, b in zip(got[:3], want[:3]):
+                check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)), f"{what} floats")
+                err = max(err, float((a - b).abs().max()))
+            kw_cases.append(dict(
+                B=B, J=J, c=c, load=load, max_abs_err=err,
+                ms=time_ms(torch, lambda: kw_queue(arrivals, services, sp), sizes["kernel_reps"], device, flush, ahead=True),
+                plain_ms=time_ms(torch, lambda: kw_queue_plain(arrivals, services, sp), sizes["plain_reps"], device),
+                bound=bound(B * J * 24 + c * 4, B * J * (3 + 2 * c)),
+            ))
 
     M, s, k = sizes["residual_shape"]
     xs = torch.sort(torch.as_tensor(job1_trace(), dtype=torch.float32, device=device)).values
@@ -377,9 +389,11 @@ def main_path(torch, device, sizes) -> dict:
     return dict(frontier_wall_s=wall, peak_bytes=peak)
 
 
-def profiled(torch, fn, top_n: int = 12) -> dict:
+def profiled(torch, fn, top_n: int = 12, named: tuple = ()) -> dict:
     """`fn()` once under torch.profiler: wall seconds, device ms summed over
-    kernels, the device's idle share of the wall time, the top kernels."""
+    kernels, the device's idle share of the wall time, the top kernels, and
+    the device ms and calls of every kernel whose name contains one of
+    `named`."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -400,18 +414,21 @@ def profiled(torch, fn, top_n: int = 12) -> dict:
     return dict(wall_s=wall, device_ms=total_ms,
                 idle_share=None if not kernels else 1.0 - total_ms / (wall * 1e3),
                 launches=sum(e.count for e in kernels),
-                top=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, calls=e.count) for e in top])
+                top=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, calls=e.count) for e in top],
+                named=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, calls=e.count)
+                       for e in kernels if any(k in e.key for k in named)])
 
 
 def phase_profile(torch, device, sizes) -> None:
     """One full-width `frontier` call under torch.profiler: device time by
-    kernel and the device's idle share of the call's wall time."""
+    kernel (the KW queue's kernels by name), and the device's idle share of
+    the call's wall time."""
     from repro_torch.fleet import vector
 
     inp = frontier_inputs(sizes)
     args = (inp["emp"], inp["policies"], inp["lams"], sizes["n"], sizes["n_jobs"])
     kw = dict(m_trials=sizes["m_trials"], c=sizes["c"], seed=0, device=device)
-    emit("profile", **profiled(torch, lambda: vector.frontier(*args, **kw)))
+    emit("profile", **profiled(torch, lambda: vector.frontier(*args, **kw), named=("kw_",)))
 
 
 def profile_serving(torch, model, params, tokens, steps: int) -> None:

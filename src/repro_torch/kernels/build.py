@@ -103,7 +103,7 @@ def _build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kw_queue_launch.argtypes = [p, p, p, i, i, i, p, p, p, p, p, i]
+    lib.kw_queue_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p, i]
     lib.kw_queue_launch.restype = i
     lib.residual_sample_launch.argtypes = [p, p, i, i, i, i, p, p, i, p, i]
     lib.residual_sample_launch.restype = i

@@ -2,19 +2,23 @@
 
 Replaces the TPU kernel `src/repro/kernels/kw_queue.py::kw_queue` (Pallas
 body `_kernel`).  A frontier evaluation runs (grid cells × trials)
-independent FIFO G/G/c queues; each is sequential over its jobs, so the
-kernel (`csrc/kw_queue.cu`) gives one thread to one queue and keeps the c
-slot free times in registers.  Job j takes the lowest-index slot idle at
+independent FIFO G/G/c queues.  Job j takes the lowest-index slot idle at
 its arrival, else the lowest-index slot among the earliest-freeing ones;
 start = max(a, free), svc = s / speed[slot], finish = start + svc.
 
-Bound on an H100: B·J·24 bytes (25 MB, 7.5 µs at B=512, J=2048), but the
-kernel is latency bound by the J dependent steps of each thread and by a
-grid of only B threads; `PERF.md` records the gap.
+The kernel (`csrc/kw_queue.cu`) is segment-parallel: its first CUDA kernel
+runs every segment of `SEGMENT_JOBS` jobs of every queue at once from all
+slots idle (segment 0 from the true start), then re-runs each segment from
+its predecessor's speculative end state until the two runs agree; the
+second walks each queue's segments in order and re-runs only those whose
+predecessor's speculation was wrong.  The result equals the plain version
+bit for bit.  Bound on an H100: B·J·24 bytes (25 MB, 7.5 µs at B=512,
+J=2048); both kernels are bound by chains of dependent steps, and `PERF.md`
+records the gap.
 
 `kw_queue` takes the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises.  `kw_queue.launches` counts the
-kernel launches.
+calls that launch it (two CUDA launches each, one when J <= SEGMENT_JOBS).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch
 
 #: largest slot count the kernel's register array holds
 MAX_C = 32
+#: jobs per segment of the kernel's first pass (L)
+SEGMENT_JOBS = 128
 
 
 def kw_queue_plain(arrivals, services, speeds):
@@ -94,9 +100,16 @@ def kw_queue(arrivals, services, speeds):
     from .build import load_library
 
     lib = load_library()
+    L = SEGMENT_JOBS
+    K = -(-J // L)
+    # scratch: end states of the speculative and fixed-up runs; per-segment
+    # sorted flags and fix-up records
+    scratch = torch.empty((2, B, K, c), dtype=torch.float32, device=dev)
+    flags = torch.empty((2, B, K), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.kw_queue_launch(
-        arrivals.data_ptr(), services.data_ptr(), speeds.data_ptr(), B, J, c,
+        arrivals.data_ptr(), services.data_ptr(), speeds.data_ptr(), B, J, c, L,
+        scratch.data_ptr(), flags.data_ptr(),
         starts.data_ptr(), fins.data_ptr(), svcs.data_ptr(), slots.data_ptr(),
         stream, dev.index if dev.index is not None else torch.cuda.current_device(),
     )

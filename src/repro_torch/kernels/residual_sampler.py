@@ -5,7 +5,8 @@ residual_sample` (Pallas body `_kernel`).  For uniforms u (M, s, k) and a
 sorted trace xs (n,): idx = clip(ceil(u·n) - 1, 0, n - 1), y = min over the
 k = r+1 replicas of xs[idx] (eq. (7): F̄_Y = F̄_X^{r+1}), then per row the
 max and the sum over s.  The kernel (`csrc/residual_sampler.cu`) keeps xs
-in shared memory and reduces each row inside one block.
+in shared memory, streams chunks of rows of u into a ring of shared-memory
+stages with bulk copies, and reduces each row inside one warp.
 
 Bound on an H100: reading u once, M·s·k·4 bytes (40 MB, about 12 µs at
 M=32768, s=103, k=3); the kernel is memory bound by design.
@@ -20,11 +21,9 @@ from __future__ import annotations
 import torch
 
 #: shared memory one block may use on Hopper (227 KB), and the kernel's
-#: own static reduction buffers
+#: own static barriers
 SMEM_LIMIT = 232448
 _STATIC_SMEM = 64
-#: resident blocks per SM the launch aims for (128 threads each)
-_BLOCKS_PER_SM = 16
 
 
 def residual_sample_plain(u, xs):
@@ -60,7 +59,7 @@ def residual_sample(u, xs):
         raise ValueError(f"residual_sample: unsupported device {dev}")
     M, s, k = u.shape
     n = xs.shape[0]
-    if n * 4 + _STATIC_SMEM > SMEM_LIMIT:
+    if -(-n * 4 // 128) * 128 + _STATIC_SMEM > SMEM_LIMIT:
         raise ValueError(f"residual_sample: a trace of n={n} does not fit in shared memory")
     if u.numel() >= 2**31:
         raise ValueError("residual_sample: u must hold fewer than 2**31 values")
@@ -70,11 +69,10 @@ def residual_sample(u, xs):
 
     lib = load_library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(M, sms * _BLOCKS_PER_SM)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.residual_sample_launch(
         u.data_ptr(), xs.data_ptr(), M, s, k, n, max_y.data_ptr(), sum_y.data_ptr(),
-        grid, stream, dev.index if dev.index is not None else torch.cuda.current_device(),
+        sms, stream, dev.index if dev.index is not None else torch.cuda.current_device(),
     )
     if err != 0:
         raise RuntimeError(f"residual_sample: kernel launch failed with CUDA error {err}")

@@ -7,7 +7,8 @@ machine with a card and no JAX it runs on its own:
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: kw_queue slots exact and floats rtol = atol = 1e-5 (the kernel
-does the plain version's IEEE operations, so it is expected to be exact);
+does the plain version's IEEE operations, so it is expected to be exact;
+the segment-parallel cases hold it bit-equal);
 residual_sample max exact and sum rtol 1e-5 (another summation order);
 flash_attention and ssd_scan at the JAX package's own kernel tolerances
 (tests/test_kernels.py): flash 2e-5 in float32 and 2e-2 in bfloat16, ssd
@@ -65,6 +66,106 @@ def test_kw_queue_kernel_refuses_more_slots_than_it_holds():
         ops.kw_queue(a.to(dev), s.to(dev), torch.ones(33, device=dev))
 
 
+def _kw_load_inputs(B, J, c, load, seed, ints=False):
+    """Queues at offered `load` (λ·E[s] / Σ speeds); with `ints`, integer
+    arrivals and services on unit speeds, so free times tie."""
+    rng = np.random.default_rng(seed)
+    if ints:
+        speeds = np.ones(c, np.float32)
+        svc = rng.integers(1, 4, (B, J)).astype(np.float32)  # mean 2
+        gaps = rng.integers(0, 2 * int(round(2 / (load * c))) + 1, (B, J))
+    else:
+        speeds = np.sort(0.5 + 1.5 * rng.random(c))[::-1].astype(np.float32)
+        svc = (0.5 + rng.exponential(1.0, (B, J))).astype(np.float32)
+        gaps = rng.exponential(1.5 / (load * float(speeds.sum())), (B, J))
+    arr = np.cumsum(gaps, axis=1).astype(np.float32)
+    return arr, svc, speeds
+
+
+def _kw_bit_equal(arr, svc, speeds, dev):
+    args = tuple(torch.from_numpy(np.ascontiguousarray(z)).to(dev) for z in (arr, svc, speeds))
+    before = ops.kw_queue.launches
+    got = ops.kw_queue(*args)
+    torch.cuda.synchronize()
+    assert ops.kw_queue.launches == before + 1
+    for a, b in zip(got, kw_queue_plain(*args)):
+        assert torch.equal(a, b)
+
+
+# (B, J, c, load, ints, unsorted): the main path's shape; saturated at
+# c = 4 and c = 1; one row out of FIFO order; integer times (ties); B = 1
+# with J = 4096 (parallel over segments only); J below one segment
+KW_FIXUP_CASES = [
+    (512, 2048, 4, 0.7, False, False),
+    (64, 2048, 4, 1.2, False, False),
+    (64, 2048, 1, 1.2, False, False),
+    (64, 1000, 4, 0.5, False, True),
+    (64, 777, 3, 0.7, True, False),
+    (1, 4096, 4, 0.7, False, False),
+    (16, 100, 4, 0.7, False, False),
+]
+
+
+@pytest.mark.parametrize("B,J,c,load,ints,unsorted", KW_FIXUP_CASES)
+def test_kw_queue_segment_parallel_kernel_is_bit_equal_on_card(B, J, c, load, ints, unsorted):
+    dev = _card()
+    arr, svc, speeds = _kw_load_inputs(B, J, c, load, seed=B + J + c, ints=ints)
+    if unsorted:
+        arr[3, 10:J:7] -= 3.0
+    _kw_bit_equal(arr, svc, speeds, dev)
+
+
+@pytest.mark.parametrize("seg", [1, 32, 64, 256, 5000])
+def test_kw_queue_kernel_any_segment_length_on_card(seg, monkeypatch):
+    dev = _card()
+    from repro_torch.kernels import kw_queue as kw_module
+
+    monkeypatch.setattr(kw_module, "SEGMENT_JOBS", seg)
+    arr, svc, speeds = _kw_load_inputs(40, 1000, 4, 0.85, seed=seg)
+    arr[5, 100:900:3] -= 2.0
+    _kw_bit_equal(arr, svc, speeds, dev)
+
+
+# tests/test_torch_kernels.py's cases of the CPU twin of the algorithm
+# (B, J, c, L, load, ints, unsorted), run here with SEGMENT_JOBS = L, and its
+# searched cases (seed, load, speeds, unsorted row) at B = 4, J = 300, L = 8
+KW_TWO_PASS_CASES = [
+    (6, 300, 4, 64, 0.5, False, False), (6, 256, 3, 64, 0.85, False, False),
+    (4, 200, 4, 32, 1.5, False, False), (5, 150, 3, 32, 0.7, True, False),
+    (4, 40, 3, 64, 0.7, False, False), (1, 500, 1, 64, 0.5, False, False),
+    (3, 120, 32, 32, 0.7, False, False), (5, 160, 4, 32, 0.5, False, True),
+    (6, 400, 3, 16, 0.95, False, False), (4, 600, 2, 16, 0.9, False, True),
+]
+KW_TWO_PASS_HARD = [(1, 0.9, (2.0, 1.0, 1.0), None), (0, 0.8, (4.0, 2.0, 1.0), "every 7th"),
+                    (0, 0.9, (4.0, 2.0, 1.0, 0.5), "one")]
+
+
+@pytest.mark.parametrize("B,J,c,L,load,ints,unsorted", KW_TWO_PASS_CASES)
+def test_kw_queue_kernel_on_the_cpu_twins_cases_on_card(B, J, c, L, load, ints, unsorted, monkeypatch):
+    dev = _card()
+    from repro_torch.kernels import kw_queue as kw_module
+
+    monkeypatch.setattr(kw_module, "SEGMENT_JOBS", L)
+    arr, svc, speeds = _kw_load_inputs(B, J, c, load, seed=B * J + c, ints=ints)
+    if unsorted:
+        arr[1, 10:J:7] -= 3.0
+    _kw_bit_equal(arr, svc, speeds, dev)
+
+
+@pytest.mark.parametrize("seed,load,speeds,unsorted", KW_TWO_PASS_HARD)
+def test_kw_queue_kernel_reruns_on_card(seed, load, speeds, unsorted, monkeypatch):
+    dev = _card()
+    from repro_torch.kernels import kw_queue as kw_module
+
+    monkeypatch.setattr(kw_module, "SEGMENT_JOBS", 8)
+    arr, svc, _ = _kw_load_inputs(4, 300, len(speeds), load, seed=seed)
+    if unsorted == "every 7th":
+        arr[1, 10:300:7] -= 3.0
+    elif unsorted == "one":
+        arr[1, 150] -= 30.0
+    _kw_bit_equal(arr, svc, np.array(speeds, np.float32), dev)
+
+
 @pytest.mark.parametrize("m,s,k,n", [(33, 50, 3, 1000), (8, 16, 1, 100), (100, 205, 4, 488)])
 def test_residual_sample_kernel_matches_plain_on_card(m, s, k, n):
     dev = _card()
@@ -78,6 +179,40 @@ def test_residual_sample_kernel_matches_plain_on_card(m, s, k, n):
     mx_p, sm_p = residual_sample_plain(u, xs)
     assert torch.equal(mx, mx_p)
     torch.testing.assert_close(sm, sm_p, rtol=1e-5, atol=0.0)
+
+
+def _residual_check(u, xs):
+    before = ops.residual_sample.launches
+    mx, sm = ops.residual_sample(u, xs)
+    torch.cuda.synchronize()
+    assert ops.residual_sample.launches == before + 1
+    mx_p, sm_p = residual_sample_plain(u, xs)
+    assert torch.equal(mx, mx_p)
+    torch.testing.assert_close(sm, sm_p, rtol=1e-5, atol=0.0)
+
+
+# (m, s, k, n): the main path's shape; rows of 84 bytes (s·k·4 not a
+# multiple of 16) with full chunks and ragged rows; m not a multiple of the
+# chunk's rows; k = 1; a trace of 160 KB in shared memory
+@pytest.mark.parametrize("m,s,k,n", [(32768, 103, 3, 1026), (1000, 7, 3, 100), (1001, 103, 3, 1026),
+                                     (5000, 50, 1, 1000), (2048, 103, 3, 40000)])
+def test_residual_sample_streamed_kernel_on_card(m, s, k, n):
+    dev = _card()
+    rng = np.random.default_rng(n + m)
+    u = torch.from_numpy(rng.random((m, s, k), dtype=np.float32)).to(dev)
+    xs = torch.from_numpy(np.sort(rng.exponential(1.0, n)).astype(np.float32)).to(dev)
+    _residual_check(u, xs)
+
+
+def test_residual_sample_reads_unaligned_uniforms_on_card():
+    dev = _card()
+    rng = np.random.default_rng(5)
+    m, s, k = 777, 103, 3
+    flat = torch.from_numpy(rng.random(m * s * k + 1, dtype=np.float32)).to(dev)
+    u = flat[1:].view(m, s, k)
+    assert u.data_ptr() % 16 != 0
+    xs = torch.from_numpy(np.sort(rng.exponential(1.0, 1026)).astype(np.float32)).to(dev)
+    _residual_check(u, xs)
 
 
 def test_frontier_on_card_agrees_with_the_cpu_path():
