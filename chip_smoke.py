@@ -111,15 +111,13 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int, device, flush=None, ahead=False, flush_by="read") -> float:
+def time_ms(torch, fn, reps: int, device, flush=None, ahead=False) -> float:
     """Median time of `fn` in ms.  On the card: CUDA events around each
     call; with `ahead`, all calls are enqueued behind a sleep kernel so
     that the host's launch overhead leaves no gaps (for a single kernel;
     a plain version made of many small launches is timed as it runs).
-    `flush` (a buffer larger than L2) is read before each call so the
-    inputs come from device memory, not L2 (`flush_by="write"` rewrites it
-    instead, which leaves L2 full of dirty lines whose write-back the timed
-    call then pays for: PERF.md)."""
+    `flush` (a large buffer) is rewritten before each call so the inputs
+    come from device memory, not L2."""
     if device.type != "cuda":
         times = []
         for _ in range(reps):
@@ -134,7 +132,7 @@ def time_ms(torch, fn, reps: int, device, flush=None, ahead=False, flush_by="rea
         torch.cuda._sleep(100_000_000)
     for start, end in pairs:
         if flush is not None:
-            flush.zero_() if flush_by == "write" else flush.sum()
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -171,12 +169,15 @@ def phase_kernels(torch, device, sizes) -> dict:
     from repro_torch.kernels.residual_sampler import residual_sample, residual_sample_plain
 
     g = torch.Generator(device=device).manual_seed(1234)
+    # the loads after the first draw from their own generator, so that every
+    # later kernel's inputs are those drawn after the first load's queues alone
+    g_loads = torch.Generator(device=device).manual_seed(4321)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=device) if device.type == "cuda" else None
     B, J = sizes["kw_shape"]
     kw_cases = []
-    for load in sizes["kw_loads"]:
+    for i, load in enumerate(sizes["kw_loads"]):
         for speeds in ([2.0, 1.0, 1.0, 0.5], [1.0]):
-            arrivals, services, sp = kw_inputs(torch, device, g, B, J, speeds, load)
+            arrivals, services, sp = kw_inputs(torch, device, g if i == 0 else g_loads, B, J, speeds, load)
             c = len(speeds)
             what = f"kw_queue (load {load}, c={c})"
             got = kw_queue(arrivals, services, sp)

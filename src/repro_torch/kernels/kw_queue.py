@@ -27,8 +27,9 @@ import torch
 
 #: largest slot count the kernel's register array holds
 MAX_C = 32
-#: jobs per segment of the kernel's first pass (L)
-SEGMENT_JOBS = 128
+#: jobs per segment of the kernel's first pass (L), the fastest of 32, 64,
+#: 128 and 256 on the queues of a full-width `frontier` call (PERF.md)
+SEGMENT_JOBS = 256
 
 
 def kw_queue_plain(arrivals, services, speeds):

@@ -115,7 +115,7 @@ def test_kw_queue_segment_parallel_kernel_is_bit_equal_on_card(B, J, c, load, in
     _kw_bit_equal(arr, svc, speeds, dev)
 
 
-@pytest.mark.parametrize("seg", [1, 32, 64, 256, 5000])
+@pytest.mark.parametrize("seg", [1, 32, 64, 128, 256, 5000])
 def test_kw_queue_kernel_any_segment_length_on_card(seg, monkeypatch):
     dev = _card()
     from repro_torch.kernels import kw_queue as kw_module

@@ -1,166 +1,84 @@
 #!/usr/bin/env python3
-"""Time the frontier's two kernels of several checkouts in turns, on one card.
+"""Run chip_smoke.py's kernel and frontier phases on the port of several
+checkouts in turns, on one card.
 
-    python3 tools/kernel_ab.py TREE [TREE ...] [--segments 64,128,256] [--only residual]
-    python3 tools/kernel_ab.py --ptxas
+    python3 tools/kernel_ab.py TREE [TREE ...] [--segments 64,128,256]
 
 TREE is the root of a checkout (`.` for this one), for example the parent
 commit unpacked with `git archive` into `build/parent`.  For each TREE in
 the order given (parent, change, change, parent compares two versions), a
-fresh process puts TREE/src first on the import path, builds that tree's
-kernels, and times with this checkout's `chip_smoke.time_ms` (median of 20
-CUDA-event timings, L2 flushed by reading a 256 MB buffer):
-  - `kw_queue` at chip_smoke.py's shape (512 queues × 2048 jobs) at loads
-    0.7, 0.85 and 1.2 (saturated), for c = 4 and c = 1, each held to its
-    plain version (slots equal, floats within 1e-5);
-  - `residual_sample` at (32768, 103, 3) on the Job 1 trace (n = 1026),
-    also with L2 flushed by writing, and `u.sum()` on the same u both ways
-    (one plain pass over the bytes the kernel reads);
-  - one warm `frontier` call at chip_smoke.py's full width (host wall
-    time, median of 3);
-  - for each `kw_queue` case, the device time of each CUDA kernel of one
-    call under torch.profiler.
-With `--segments`, the runs of each TREE repeat `kw_queue` for every listed
-`SEGMENT_JOBS` (trees that have the setting); `--only residual` skips
-`kw_queue`.  One JSON line per run, the card's name and power limit first.
-`--ptxas` compiles the kernel sources of this checkout with `-Xptxas -v`
-and prints each kernel's registers, shared memory and spills.
+fresh process puts TREE/src first on the import path and runs this
+checkout's `chip_smoke.py` on that tree's package, so every tree sees the
+same inputs and the same timer:
+  - `phase_kernels`: every kernel against its plain version, timed;
+  - `main_path` twice; the second `frontier` line is the warm wall time;
+  - `phase_profile`: one more `frontier` call under torch.profiler, with
+    the device time of the KW queue's kernels.
+With `--segments`, `phase_kernels` and `phase_profile` repeat for each
+listed `SEGMENT_JOBS` of `kw_queue`.  chip_smoke's JSON lines pass through,
+after the card's name and power limit and, for each run, a line naming its
+tree and segment length.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def device_ms_by_kernel(torch, fn) -> dict:
-    """Device ms of each CUDA kernel of one `fn()` call, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0 and not e.key.startswith("aten::"):
-            name = e.key.split("namespace)::")[-1].split("(")[0][:60]
-            out[name] = out.get(name, 0.0) + us / 1e3
-    return out
-
-
-def run_tree(tree: Path, segments: list[int], only: str = "") -> dict:
+def run_tree(tree: Path, segments: list[int]) -> None:
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
-    import numpy as np
     import torch
 
     import chip_smoke as cs
-    from repro_torch.fleet import vector
     from repro_torch.kernels import kw_queue as kw_module
-    from repro_torch.kernels.residual_sampler import residual_sample, residual_sample_plain
 
     assert Path(kw_module.__file__).resolve().is_relative_to(tree.resolve()), kw_module.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    sizes = cs.FULL
-    reps = sizes["kernel_reps"]
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    B, J = sizes["kw_shape"]
-    out = {"tree": str(tree), "kw_queue": []}
-    for seg in [] if only == "residual" else segments or [None]:
-        if seg is not None:
-            kw_module.SEGMENT_JOBS = seg
-        g = torch.Generator(device=dev).manual_seed(1234)
-        for load in (0.7, 0.85, 1.2):
-            for speeds in ([2.0, 1.0, 1.0, 0.5], [1.0]):
-                a, s, sp = cs.kw_inputs(torch, dev, g, B, J, speeds, load)
-                got = kw_module.kw_queue(a, s, sp)
-                want = kw_module.kw_queue_plain(a, s, sp)
-                ok = torch.equal(got[3], want[3]) and all(
-                    bool(torch.allclose(x, y, rtol=1e-5, atol=1e-5)) for x, y in zip(got[:3], want[:3]))
-                bit_equal = all(torch.equal(x, y) for x, y in zip(got, want))
-                out["kw_queue"].append(dict(
-                    segment_jobs=getattr(kw_module, "SEGMENT_JOBS", None), load=load, c=len(speeds),
-                    ok=ok, bit_equal=bit_equal,
-                    ms=cs.time_ms(torch, lambda: kw_module.kw_queue(a, s, sp), reps, dev, flush, ahead=True),
-                    device_ms_by_kernel=device_ms_by_kernel(torch, lambda: kw_module.kw_queue(a, s, sp))))
-    g = torch.Generator(device=dev).manual_seed(99)
-    M, S, K = sizes["residual_shape"]
-    xs = torch.sort(torch.as_tensor(cs.job1_trace(), dtype=torch.float32, device=dev)).values
-    u = torch.rand((M, S, K), generator=g, device=dev)
-    mx, sm = residual_sample(u, xs)
-    mx_p, sm_p = residual_sample_plain(u, xs)
-    out["residual_sample"] = dict(
-        ok=torch.equal(mx, mx_p) and bool(torch.allclose(sm, sm_p, rtol=1e-5, atol=0.0)),
-        ms=cs.time_ms(torch, lambda: residual_sample(u, xs), reps, dev, flush, ahead=True),
-        ms_flush_by_write=cs.time_ms(torch, lambda: residual_sample(u, xs), reps, dev, flush, ahead=True,
-                                     flush_by="write"),
-        u_sum_ms=cs.time_ms(torch, lambda: u.sum(), reps, dev, flush, ahead=True),
-        u_sum_ms_flush_by_write=cs.time_ms(torch, lambda: u.sum(), reps, dev, flush, ahead=True,
-                                           flush_by="write"))
-    inp = cs.frontier_inputs(sizes)
-    args = (inp["emp"], inp["policies"], inp["lams"], sizes["n"], sizes["n_jobs"])
-    kw = dict(m_trials=sizes["m_trials"], c=sizes["c"], seed=0, device=dev)
-    walls = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        vector.frontier(*args, **kw)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    out["frontier_wall_s"] = dict(first=walls[0], warm_median=float(np.median(walls[1:])))
-    return out
 
+    def each_segment_length():
+        for seg in segments or [None]:
+            if seg is not None:
+                kw_module.SEGMENT_JOBS = seg
+            cs.emit("tree", tree=str(tree), segment_jobs=getattr(kw_module, "SEGMENT_JOBS", None))
+            yield
 
-def ptxas() -> None:
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-
-    nvcc = build.find_nvcc()
-    for name in ("kw_queue.cu", "residual_sampler.cu"):
-        cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(build.CSRC / name), "-o", os.devnull]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        for line in (res.stdout + res.stderr).splitlines():
-            print(f"{name}: {line}")
-        print(f"{name}: rc={res.returncode}")
+    for _ in each_segment_length():
+        cs.phase_kernels(torch, dev, cs.FULL)
+    for _ in range(2):
+        cs.main_path(torch, dev, cs.FULL)
+    for _ in each_segment_length():  # warm, as `chip_smoke.py --profile` runs it
+        cs.phase_profile(torch, dev, cs.FULL)
 
 
 def main() -> int:
     args = sys.argv[1:]
-    if args == ["--ptxas"]:
-        ptxas()
-        return 0
+    segments = []
+    if "--segments" in args:
+        i = args.index("--segments")
+        segments = [int(v) for v in args[i + 1].split(",")]
+        del args[i:i + 2]
     if args[:1] == ["--one"]:
-        segments = [int(v) for v in args[2].split(",")] if args[2] else []
-        print(json.dumps(run_tree(Path(args[1]), segments, args[3])), flush=True)
+        run_tree(Path(args[1]), segments)
         return 0
-    opts = {"--segments": "", "--only": ""}
-    for name in opts:
-        if name in args:
-            i = args.index(name)
-            opts[name] = args[i + 1]
-            del args[i:i + 2]
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
 
     print(json.dumps({"nvidia_smi": cs.nvidia_smi()}), flush=True)
     failed = False
     for tree in args:
-        res = subprocess.run([sys.executable, __file__, "--one", tree, opts["--segments"], opts["--only"]],
-                             capture_output=True, text=True, timeout=1800)
-        line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
-        print(line or json.dumps({"tree": tree, "rc": res.returncode, "stderr": res.stderr[-3000:]}), flush=True)
-        if res.returncode != 0 or not line:
+        cmd = [sys.executable, __file__, "--one", tree] + (["--segments", ",".join(map(str, segments))] if segments else [])
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
+        print(res.stdout, end="", flush=True)
+        if res.returncode != 0:
+            print(json.dumps({"tree": tree, "rc": res.returncode, "stderr": res.stderr[-3000:]}), flush=True)
             failed = True
-            continue
-        got = json.loads(line)
-        failed |= not (all(c["ok"] for c in got["kw_queue"]) and got["residual_sample"]["ok"])
     return 1 if failed else 0
 
 
