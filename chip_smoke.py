@@ -16,6 +16,21 @@ JAX package.  Phases, one JSON line each:
             c=4 gang blocks, 2048 jobs × 16 trials, 8 policies × 4 loads
   policy_search  the controller's inner loop at the ρ=0.7 load
   trace_kill     `trace_kill_rollout` (π_kill, p=0.1, r=2) on the same trace
+  frontier_hist  `frontier(tail="hist")` on the frontier's grid: p50 and p99
+            against the exact rows and the order statistics next to the rank
+  dag       `dag_frontier` at full width: a map → shuffle → reduce pipeline
+            on the three stage traces (1026, 488 and 485 tasks, c=4 gang
+            blocks each), 2048 jobs × 16 trials, 8 per-stage policy vectors
+            × 4 loads; then each stage's kw_queue call on its own inputs
+            (the sorted barrier releases) against kw_queue_plain
+  dag_one_stage  the map stage alone against `frontier`, bit for bit
+  dag_hist  `tail="hist"` against the exact rows and `dag_rollout`'s paths
+  dag_search     `exhaustive_search` (27 vectors) against `coordinate_search`
+  dag_general    a `delayed_relaunch` vector (the lowered evaluator), and
+  dag_fault      `FaultSpec` q = 0 and 0.05 (the retry draws), at full width
+  dag_event the port's event engine (`DagFleetSim`, host) against
+            `dag_frontier` (card) on the two-stage grid of the reference's
+            benchmarks/bench_dag.py: within 5σ on E[T], 0.1 on E[C]
   serve     `repro_torch.launch.serve` at full width: Zamba2-1.2B in bf16
             with seed-0 weights, 2 batches x 8 requests of 1024 prompt
             tokens and 32 new tokens under `HedgedServer(adapt=True)`;
@@ -25,16 +40,23 @@ JAX package.  Phases, one JSON line each:
             those with the plain versions (gated in float32)
 
 With `--profile`, one request's prefill and 8 decode steps (phase
-`serve_profile`) and one more `frontier` call (phase `profile`) run under
-torch.profiler: device time by kernel, the device's idle share.  Then
-the kernel table (`{"kernels": [...]}`), the card's name and power
-limit, and last `{"ok": true, "device": {...}}`.  Any failed check raises
+`serve_profile`), one more `frontier` call (phase `profile`), one more
+full-width `dag_frontier` call (phase `dag_profile`) and the fault grid of
+`dag_fault` (phase `dag_fault_profile`) run under torch.profiler: device
+time by kernel, the device's idle share.  Then the kernel table
+(`{"kernels": [...]}`), the card's name and power limit, and last
+`{"ok": true, "device": {...}}`.  Any failed check raises
 and the script exits nonzero without the last line; so does a machine
-without a card.  The launch counts in the kernel table come from the two
+without a card.  The launch counts in the kernel table come from the three
 main paths only: kw_queue and residual_sample from the frontier path
-(counters set to 0 just before `frontier`, read after `trace_kill`),
-flash_attention and ssd_scan from the serve path (set to 0 just before it,
-read just after); the comparison launches are not in them.
+(counters set to 0 just before `frontier`, read after `frontier_hist`)
+plus kw_queue from the DAG path (set to 0 just before `dag`, read after
+`dag_event`), flash_attention and ssd_scan from the serve path (set to 0
+just before it, read just after).  The calls made only to compare with
+them (the kernels against their plain versions, the reference `frontier`
+of `dag_one_stage`, the rollouts that give the order statistics, the
+single-fork grid of `dag_general`) run under `uncounted` and are not in
+the counts.
 """
 
 from __future__ import annotations
@@ -91,6 +113,10 @@ FULL = dict(
     flash_shape=(1, 1024, 32, 64), ssd_shape=(1, 1024, 64, 64, 1, 64, 128),
     flash_cases=FLASH_CASES + FLASH_BF16_CASES, ssd_cases=SSD_CASES + SSD_BF16_CASES,
     serve=dict(arch="zamba2-1.2b", reduced=False, requests=8, batches=2, prompt=1024, steps=32),
+    # the map → shuffle → reduce pipeline: (stage trace, tasks), c gang blocks
+    # each; the event oracle's grid is benchmarks/bench_dag.py's
+    dag=dict(stages=(("map", 1026), ("shuffle", 488), ("reduce", 485)), c=4,
+             n_jobs=2048, m_trials=16, event_jobs=400, event_trials=12),
 )
 
 
@@ -144,6 +170,20 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> 
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches of the block leave the kernels' launch counters as they
+    were: for calls made only to compare a path with its reference."""
+    from repro_torch.kernels.kw_queue import kw_queue
+    from repro_torch.kernels.residual_sampler import residual_sample
+
+    saved = kw_queue.launches, residual_sample.launches
+    try:
+        yield
+    finally:
+        kw_queue.launches, residual_sample.launches = saved
 
 
 def job1_trace():
@@ -387,14 +427,321 @@ def main_path(torch, device, sizes) -> dict:
     check(z < 5.0, f"trace_kill mean_service {summary['mean_service']} vs frontier {cell['mean_service']} ({z:.2f} sigma)")
     emit("trace_kill", wall_s=tk_wall, mean_service=summary["mean_service"],
          frontier_mean_service=cell["mean_service"], sigma=z, mean_sojourn=summary["mean_sojourn"])
+
+    # tail="hist" on the same grid; the order statistics of the ρ = 0.7
+    # cells come from a one-stage DAG's rollout, whose paths are the
+    # frontier cell's (the one-stage contract)
+    from repro_torch.dag import JobDAG, StageSpec, dag_rollout
+
+    t0 = time.perf_counter()
+    hist = vector.frontier(emp, policies, lams, n, J, m_trials=m, c=c, seed=0, tail="hist", device=device)
+    _sync(torch, device)
+    hist_wall = time.perf_counter() - t0
+    one = JobDAG([StageSpec("map", n, x, c=c)])
+    r_cap = max(p.r for p in policies) + 1
+    with uncounted():
+        paths = [dag_rollout(one, lam7, J, m, policies=(pol,), seed=0, r_caps=(r_cap,), device=device)
+                 for pol in policies]
+    devs = hist_checks("frontier", hist, rows, [i * len(lams) + rhos.index(0.7) for i in range(len(policies))], paths)
+    emit("frontier_hist", wall_s=hist_wall, exact_wall_s=wall, cells_with_order_stats=len(paths), **devs,
+         evt_p999=[r["evt_p999"] for r in hist], p999=[r["p999"] for r in hist])
     return dict(frontier_wall_s=wall, peak_bytes=peak)
+
+
+def hist_checks(what, hist_rows, exact_rows, cells, paths, rel_acc=None) -> dict:
+    """`tail="hist"` rows against the exact rows of the same grid and seed.
+
+    For each cell index in `cells`, with that cell's `dag_rollout` paths
+    (the same draws as the grid's cell): the sketch's p_q reads the order
+    statistic x_(k), k = floor(q·(N-1)), within rel_acc, and the exact
+    row's p_q (`np.percentile`, linear) lies between x_(k) and x_(k+1); so
+    they may differ by rel_acc·x_(k+1) plus the gap x_(k+1) - x_(k).  The
+    cost_p50 and cost_p99 keys are held the same way to the order
+    statistics of the cell's per-job cost, and the evt_* keys must be
+    those refitted from the histogram of the cell's own sojourns, within
+    rtol 1e-6.  Every row's tail keys must be finite."""
+    from repro_torch.obs import DEFAULT_HIST, device_histogram, evt_keys, sketch_from_device
+
+    rel_acc = DEFAULT_HIST.rel_acc if rel_acc is None else rel_acc
+    for h in hist_rows:
+        check(all(math.isfinite(h[k]) for k in ("p50", "p99", "p999", "cost_p50", "cost_p99")),
+              f"{what} hist row finite")
+
+    def order_stats(z, q):
+        xs = np.sort(z.cpu().numpy().ravel())
+        k = int(math.floor(q * (xs.size - 1)))
+        return float(xs[k]), float(xs[min(k + 1, xs.size - 1)])
+
+    worst = {}
+    for q, key in ((0.5, "p50"), (0.99, "p99")):
+        worst[key] = max(abs(h[key] - e[key]) / e[key] for h, e in zip(hist_rows, exact_rows))
+        worst["cost_" + key] = 0.0
+        for i, res in zip(cells, paths):
+            lo, hi = order_stats(res.sojourn, q)
+            h, e = hist_rows[i][key], exact_rows[i][key]
+            check(lo * (1 - 1e-6) <= e <= hi * (1 + 1e-6), f"{what} cell {i}: exact {key} {e} within [{lo}, {hi}]")
+            check(abs(h - e) <= rel_acc * hi + (hi - lo),
+                  f"{what} cell {i}: hist {key} {h} vs exact {e} (rel_acc {rel_acc}, gap {hi - lo})")
+            lo, hi = order_stats(res.total_cost, q)
+            h = hist_rows[i]["cost_" + key]
+            check(abs(h - lo) <= rel_acc * hi + (hi - lo),
+                  f"{what} cell {i}: hist cost_{key} {h} vs order statistic {lo} (rel_acc {rel_acc}, gap {hi - lo})")
+            worst["cost_" + key] = max(worst["cost_" + key], abs(h - lo) / lo)
+    evt_dev = 0.0
+    for i, res in zip(cells, paths):
+        own = evt_keys(sketch_from_device(*(z.cpu().numpy() for z in device_histogram(res.sojourn))))
+        for k, v in own.items():
+            evt_dev = max(evt_dev, abs(hist_rows[i][k] - v) / abs(v))
+    check(evt_dev <= 1e-6, f"{what}: evt keys refitted from the cells' own sojourns ({evt_dev:.3g})")
+    return {**{f"max_rel_dev_{k}": v for k, v in worst.items()}, "max_rel_dev_evt_vs_own_sojourns": evt_dev}
+
+
+#: per-stage candidates of the DAG phase: baseline, π_keep(0.1, 1),
+#: π_kill(0.1, 1), π_keep(0.1, 2); the vectors index them per stage
+DAG_CANDIDATES = ((0.0, 0, True), (0.1, 1, True), (0.1, 1, False), (0.1, 2, True))
+DAG_VECTORS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0), (1, 1, 1), (2, 2, 0), (3, 3, 0), (3, 3, 3))
+#: benchmarks/bench_dag.py's grid for the event oracle: ShiftedExp(1, 1) map
+#: of 8 tasks, ShiftedExp(0.5, 2) reduce of 4, c = 2 and 2, its 4 vectors
+#: (p, r, keep) per stage, three loads
+EVENT_VECTORS = (
+    ((0.0, 0, True), (0.0, 0, True)), ((0.2, 1, True), (0.0, 0, True)),
+    ((0.2, 1, True), (0.25, 1, True)), ((0.25, 1, False), (0.25, 1, True)),
+)
+EVENT_LAMS = (0.2, 0.3, 0.4)
+
+
+def dag_inputs(sizes) -> dict:
+    """The pipeline map → shuffle → reduce on the stage traces (mean 1),
+    its policy vectors, and λ = ρ·c / max_s E[T_s], so that the baseline's
+    bottleneck stage stands at each ρ; E[T_s] = E[max of n_s trace draws]
+    by a numpy Monte Carlo over the engine's type-1 gather, as
+    `frontier_inputs` does."""
+    from repro_torch.core import Empirical, SingleForkPolicy
+    from repro_torch.dag import JobDAG, StageSpec
+    from repro_torch.data.traces import load_stage_trace
+
+    d = sizes["dag"]
+    c = d["c"]
+    rng = np.random.default_rng(7)
+    stages, et = [], []
+    for name, n in d["stages"]:
+        x = load_stage_trace(name)
+        xs32 = Empirical(x).sorted.numpy()
+        u = rng.random((sizes["mc_reps"], n), dtype=np.float32)
+        idx = np.clip(np.ceil(u * xs32.size).astype(np.int64) - 1, 0, xs32.size - 1)
+        et.append(float(xs32[idx].max(axis=1).astype(np.float64).mean()))
+        stages.append(StageSpec(name, n, x, c=c))
+    cands = [SingleForkPolicy(*p) for p in DAG_CANDIDATES]
+    vectors = [tuple(cands[i] for i in v) for v in DAG_VECTORS]
+    return dict(dag=JobDAG.pipeline(stages), et=et, cands=cands, vectors=vectors,
+                lams=[rho * c / max(et) for rho in RHOS])
+
+
+@contextlib.contextmanager
+def captured_queue_calls(log: list):
+    """While the block runs, every call of the fused engines' KW queue
+    (`fleet.vector.batched_queue` → the kw_queue wrapper) appends its
+    (arrivals, services, speeds) to `log`, then runs as it would."""
+    from repro_torch.fleet import vector
+
+    inner = vector.kw_queue_kernel
+
+    def recorded(arrivals, services, speeds):
+        log.append((arrivals, services, speeds))
+        return inner(arrivals, services, speeds)
+
+    vector.kw_queue_kernel = recorded
+    try:
+        yield
+    finally:
+        vector.kw_queue_kernel = inner
+
+
+def stage_queue_checks(torch, calls) -> list:
+    """Each stage's kw_queue call on the inputs the DAG gave it (barrier
+    releases sorted stably, gang makespans in that order) against
+    kw_queue_plain on the same tensors: slots equal, floats within
+    rtol = atol = 1e-5 as in phase `kernels`."""
+    from repro_torch.kernels.kw_queue import kw_queue, kw_queue_plain
+
+    out = []
+    with uncounted():
+        for s, (arrivals, services, speeds) in enumerate(calls):
+            what = f"kw_queue on the DAG's stage call {s} {tuple(arrivals.shape)}"
+            check(bool((arrivals[:, 1:] >= arrivals[:, :-1]).all()), f"{what}: rows in FIFO order")
+            got, want = kw_queue(arrivals, services, speeds), kw_queue_plain(arrivals, services, speeds)
+            check(torch.equal(got[3], want[3]), f"{what}: slots equal")
+            err = 0.0
+            for a, b in zip(got[:3], want[:3]):
+                check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)), f"{what}: floats")
+                err = max(err, float((a - b).abs().max()))
+            out.append(dict(rows=list(arrivals.shape), c=int(speeds.shape[0]), max_abs_err=err))
+    return out
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed_call(torch, device, fn):
+    """fn() with its wall seconds and peak device bytes."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    return out, wall, torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+
+
+def _finite_rows(rows, what):
+    for row in rows:
+        check(all(math.isfinite(v) for v in row.values() if isinstance(v, float)), f"{what}: finite row {row['label']}")
+
+
+def phase_dag(torch, device, sizes) -> None:
+    """`dag_frontier` at full width on the three-stage pipeline, then the
+    DAG path's checks: the one-stage contract, `tail="hist"`, the joint
+    searches, the lowered evaluator, the fault path and the event oracle."""
+    from repro_torch.core import delayed_relaunch
+    from repro_torch.dag import JobDAG, StageSpec, coordinate_search, dag_frontier, dag_rollout, exhaustive_search
+    from repro_torch.faults import FaultSpec
+    from repro_torch.fleet import vector
+
+    d = sizes["dag"]
+    J, m, c = d["n_jobs"], d["m_trials"], d["c"]
+    inp = dag_inputs(sizes)
+    dag, vectors, lams, cands = inp["dag"], inp["vectors"], inp["lams"], inp["cands"]
+    names = dag.names
+    calls: list = []
+    with captured_queue_calls(calls):
+        rows, wall, peak = _timed_call(torch, device, lambda: dag_frontier(dag, vectors, lams, J, m_trials=m, seed=0, device=device))
+    check(len(calls) == len(names), f"one KW queue call per stage ({len(calls)})")
+    check(len(rows) == len(vectors) * len(lams), "one DAG row per cell")
+    _finite_rows(rows, "dag")
+    for i, vec in enumerate(vectors):
+        soj = [r["mean_sojourn"] for r in rows[i * len(lams):(i + 1) * len(lams)]]
+        check(all(a < b for a, b in zip(soj, soj[1:])), f"DAG mean_sojourn rises with lambda for {rows[i * len(lams)]['label']}")
+    share_err = max(abs(sum(r[f"{nm}/share"] for nm in names) - 1.0) for r in rows)
+    check(share_err <= 1e-5, f"critical-path shares sum to 1 ({share_err:.3g})")
+    emit("dag", cells=len(rows), stages=[dict(name=s.name, n=s.n_tasks, c=s.c, e_t_baseline=e)
+                                         for s, e in zip(dag.stages, inp["et"])],
+         n_jobs=J, m_trials=m, lams=lams, wall_s=wall, peak_bytes=peak, share_sum_max_err=share_err,
+         rows=[{k: r[k] for k in ("label", "lam", "mean_sojourn", "mean_cost", "p99", "rho",
+                                  *(f"{nm}/share" for nm in names))} for r in rows])
+    emit("dag_kw_queue", tolerance="slots exact, floats rtol=atol=1e-5",
+         stages=[dict(stage=nm, **st) for nm, st in zip(names, stage_queue_checks(torch, calls))])
+    del calls
+
+    # the map stage alone: a one-stage DAG is the frontier, bit for bit
+    mspec = dag.stages[0]
+    one = JobDAG([StageSpec(mspec.name, mspec.n_tasks, mspec.dist, c=c)])
+    a, one_wall, _ = _timed_call(torch, device, lambda: dag_frontier(one, [(p,) for p in cands], lams, J, m_trials=m, seed=0, device=device))
+    with uncounted():
+        b = vector.frontier(mspec.dist, cands, lams, mspec.n_tasks, J, m_trials=m, c=c, seed=0, device=device)
+    pairs = [(k, k) for k in ("mean_sojourn", "mean_wait", "mean_service", "mean_cost", "sojourn_std_err", "p50", "p99", "p999")]
+    pairs += [("map/rho", "rho_block"), ("map/service", "mean_service"), ("map/cost", "mean_cost"), ("map/sojourn", "mean_sojourn")]
+    for ra, rb in zip(a, b):
+        for ka, kb in pairs:
+            check(ra[ka] == rb[kb], f"one-stage DAG {ka} {ra[ka]!r} == frontier {kb} {rb[kb]!r} ({rb['policy']}, lam {rb['lam']})")
+        check(ra["map/share"] == 1.0, "one-stage share is 1")
+    emit("dag_one_stage", cells=len(a), wall_s=one_wall, keys=[ka for ka, _ in pairs], bit_equal=True)
+
+    # tail="hist"; order statistics of the ρ = 0.7 cells from dag_rollout
+    i7 = RHOS.index(0.7)
+    lam7 = lams[i7]
+    hist, hist_wall, _ = _timed_call(torch, device, lambda: dag_frontier(dag, vectors, lams, J, m_trials=m, seed=0, tail="hist", device=device))
+    r_caps = tuple(max(v[s].r for v in vectors) + 1 for s in range(len(names)))
+    with uncounted():
+        paths = [dag_rollout(dag, lam7, J, m, policies=v, seed=0, r_caps=r_caps, device=device) for v in vectors]
+    devs = hist_checks("dag", hist, rows, [i * len(lams) + i7 for i in range(len(vectors))], paths)
+    del paths
+    emit("dag_hist", wall_s=hist_wall, cells_with_order_stats=len(vectors), **devs,
+         evt_xi=[r["evt_xi"] for r in hist], evt_p999=[r["evt_p999"] for r in hist])
+
+    # joint search at ρ = 0.7: all 27 vectors of {baseline, π_keep, π_kill}³
+    # against coordinate ascent on the same seed
+    three = cands[:3]
+    ex, ex_wall, _ = _timed_call(torch, device, lambda: exhaustive_search(dag, three, lam7, n_jobs=J, m_trials=m, seed=0, device=device))
+    co, co_wall, _ = _timed_call(torch, device, lambda: coordinate_search(dag, three, lam7, n_jobs=J, m_trials=m, seed=0, device=device))
+    obj_ex, obj_co = ex["best"]["mean_sojourn"], co["best"]["mean_sojourn"]
+    # the coordinate steps evaluate cells of the same grid on the same
+    # draws; a mean over fewer cells may round differently on the card,
+    # hence the 1e-6
+    check(ex["n_cells"] == 27 and obj_ex <= obj_co * (1 + 1e-6),
+          f"exhaustive {obj_ex} no worse than coordinate {obj_co}")
+    emit("dag_search", lam=lam7, exhaustive=dict(best=ex["best"]["label"], mean_sojourn=obj_ex, cells=ex["n_cells"], wall_s=ex_wall),
+         coordinate=dict(best=co["best"]["label"], mean_sojourn=obj_co, evals=co["n_evals"], sweeps=co["sweeps"],
+                         converged=co["converged"], wall_s=co_wall))
+
+    # the lowered evaluator: a delayed_relaunch map stage in a grid with
+    # single-fork vectors; those cells keep their single-fork rows
+    base, keep = cands[0], cands[1]
+    single = [(base, base, base), (keep, keep, base)]
+    mixed = single + [(delayed_relaunch(2.0, r=1, keep=True), base, base)]
+    caps = (2, 2, 2)
+    g_rows, g_wall, g_peak = _timed_call(torch, device, lambda: dag_frontier(dag, mixed, [lam7], J, m_trials=m, seed=0, r_caps=caps, device=device))
+    with uncounted():
+        s_rows = dag_frontier(dag, single, [lam7], J, m_trials=m, seed=0, r_caps=caps, device=device)
+    _finite_rows(g_rows, "dag_general")
+    g_dev = max(abs(ga[k] - sa[k]) / abs(sa[k]) for ga, sa in zip(g_rows, s_rows)
+                for k in ("mean_sojourn", "mean_cost", "p99") + tuple(f"{nm}/share" for nm in names))
+    check(g_dev <= 1e-6, f"single-fork cells of the lowered grid keep their rows ({g_dev:.3g})")
+    emit("dag_general", lam=lam7, labels=[r["label"] for r in g_rows], wall_s=g_wall, peak_bytes=g_peak,
+         single_fork_max_rel_dev=g_dev, mean_sojourn=[r["mean_sojourn"] for r in g_rows])
+
+    # the fault path: q = 0 and 0.05 through the retry draws
+    faults = [FaultSpec(q=0.0), FaultSpec(q=0.05)]
+    f_rows, f_wall, f_peak = _timed_call(torch, device, lambda: dag_frontier(dag, single, [lam7], J, m_trials=m, seed=0, fault=faults, device=device))
+    _finite_rows(f_rows, "dag_fault")
+    free = {r["label"]: r for r in rows if r["lam"] == lam7}
+    z = []
+    for q0, q5 in zip(f_rows[::2], f_rows[1::2]):
+        ref = free[q0["label"]]
+        z.append(abs(q0["mean_sojourn"] - ref["mean_sojourn"]) / math.hypot(q0["sojourn_std_err"], ref["sojourn_std_err"]))
+        check(z[-1] < 5.0, f"q=0 cell of the fault grid agrees with the fault-free row ({z[-1]:.2f} sigma)")
+        check(q5["mean_service"] > q0["mean_service"], f"q=0.05 lengthens the service of {q0['label']}")
+    emit("dag_fault", lam=lam7, qs=[0.0, 0.05], wall_s=f_wall, peak_bytes=f_peak, q0_vs_fault_free_sigma=z,
+         mean_service=[r["mean_service"] for r in f_rows], mean_sojourn=[r["mean_sojourn"] for r in f_rows])
+    phase_dag_event(torch, device, sizes)
+
+
+def phase_dag_event(torch, device, sizes) -> None:
+    """The port's event engine on the host against `dag_frontier` on the
+    device, on benchmarks/bench_dag.py's grid, gated as that benchmark
+    gates it: every cell's E[T] within 5 combined standard errors, E[C]
+    within 0.1."""
+    from repro_torch.core import ShiftedExp, SingleForkPolicy
+    from repro_torch.dag import DagFleetConfig, DagFleetSim, JobDAG, dag_frontier, poisson_arrivals
+
+    d = sizes["dag"]
+    dag = JobDAG.map_reduce(8, 4, ShiftedExp(1.0, 1.0), ShiftedExp(0.5, 2.0), c_map=2, c_reduce=2)
+    vectors = [tuple(SingleForkPolicy(*p) for p in v) for v in EVENT_VECTORS]
+    t0 = time.perf_counter()
+    event = []
+    for vec in vectors:
+        for lam in EVENT_LAMS:
+            st = DagFleetSim(DagFleetConfig(dag, policies=vec)).run(
+                poisson_arrivals(d["event_jobs"], lam, seed=int(lam * 1e3))).stats
+            event.append((st.mean_sojourn, st.mean_cost, st.sojourn_std_err))
+    event_s = time.perf_counter() - t0
+    fused, fused_s, _ = _timed_call(torch, device, lambda: dag_frontier(
+        dag, vectors, EVENT_LAMS, d["event_jobs"], m_trials=d["event_trials"], seed=17, r_caps=(2, 2), device=device))
+    sigma = [abs(f["mean_sojourn"] - e[0]) / max(math.hypot(f["sojourn_std_err"], e[2]), 1e-12) for f, e in zip(fused, event)]
+    cost = [abs(f["mean_cost"] - e[1]) for f, e in zip(fused, event)]
+    check(max(sigma) <= 5.0 and max(cost) <= 0.1,
+          f"fused DAG vs event engine: worst {max(sigma):.2f} sigma, cost {max(cost):.4f}")
+    emit("dag_event", cells=len(fused), event_s=event_s, fused_s=fused_s, max_sojourn_sigma=max(sigma),
+         max_cost_dev=max(cost), max_cost_rel_dev=max(c / e[1] for c, e in zip(cost, event)), sigma=sigma)
 
 
 def profiled(torch, fn, top_n: int = 12, named: tuple = ()) -> dict:
     """`fn()` once under torch.profiler: wall seconds, device ms summed over
-    kernels, the device's idle share of the wall time, the top kernels, and
-    the device ms and calls of every kernel whose name contains one of
-    `named`."""
+    kernels, the device's idle share of the wall time, the top kernels, the
+    device ms and calls of every kernel whose name contains one of `named`,
+    and those kernels' launches one by one in start order (`sequence`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -405,7 +752,8 @@ def profiled(torch, fn, top_n: int = 12, named: tuple = ()) -> dict:
         wall = time.perf_counter() - t0
 
     def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        us = getattr(e, "self_device_time_total", None)
+        return us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
 
     # kernels only: an aten op's entry repeats the device time of the
     # kernels it launched
@@ -417,7 +765,10 @@ def profiled(torch, fn, top_n: int = 12, named: tuple = ()) -> dict:
                 launches=sum(e.count for e in kernels),
                 top=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, calls=e.count) for e in top],
                 named=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, calls=e.count)
-                       for e in kernels if any(k in e.key for k in named)])
+                       for e in kernels if any(k in e.key for k in named)],
+                sequence=[dict(name=e.name[:80], device_ms=dev_us(e) / 1e3) for e in sorted(
+                    (e for e in prof.events() if dev_us(e) > 0 and any(k in e.name for k in named)),
+                    key=lambda e: e.time_range.start)])
 
 
 def phase_profile(torch, device, sizes) -> None:
@@ -430,6 +781,41 @@ def phase_profile(torch, device, sizes) -> None:
     args = (inp["emp"], inp["policies"], inp["lams"], sizes["n"], sizes["n_jobs"])
     kw = dict(m_trials=sizes["m_trials"], c=sizes["c"], seed=0, device=device)
     emit("profile", **profiled(torch, lambda: vector.frontier(*args, **kw), named=("kw_",)))
+
+
+def phase_dag_profile(torch, device, sizes) -> None:
+    """One full-width `dag_frontier` call under torch.profiler (after a warm
+    call): device time by kernel, launches, the idle share, and the
+    kw_queue kernels' device time in each stage's call, in stage order
+    (each call's launches begin with its `kw_segment_kernel`)."""
+    from repro_torch.dag import dag_frontier
+
+    inp = dag_inputs(sizes)
+    d = sizes["dag"]
+
+    def call():
+        return dag_frontier(inp["dag"], inp["vectors"], inp["lams"], d["n_jobs"], m_trials=d["m_trials"],
+                            seed=0, device=device)
+
+    call()
+    out = profiled(torch, call, named=("kw_",))
+    per_stage: list = []
+    for k in out["sequence"]:
+        if "kw_segment" in k["name"]:
+            per_stage.append(0.0)
+        check(bool(per_stage), f"{k['name']} launched after a kw_segment_kernel")
+        per_stage[-1] += k["device_ms"]
+    check(len(per_stage) == len(inp["dag"].stages), f"one kw_queue call per stage in the profile ({len(per_stage)})")
+    emit("dag_profile", **out, kw_queue_ms_per_stage=per_stage)
+
+    # the fault grid of phase `dag_fault`, by kernel
+    from repro_torch.core import SingleForkPolicy
+    from repro_torch.faults import FaultSpec
+
+    base, keep = (SingleForkPolicy(*p) for p in DAG_CANDIDATES[:2])
+    emit("dag_fault_profile", **profiled(torch, lambda: dag_frontier(
+        inp["dag"], [(base, base, base), (keep, keep, base)], [inp["lams"][RHOS.index(0.7)]], d["n_jobs"],
+        m_trials=d["m_trials"], seed=0, fault=[FaultSpec(q=0.0), FaultSpec(q=0.05)], device=device)))
 
 
 def profile_serving(torch, model, params, tokens, steps: int) -> None:
@@ -624,11 +1010,18 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     kw_queue.launches = 0
     residual_sample.launches = 0
     main_path(torch, device, sizes)
-    launches = {"kw_queue": kw_queue.launches, "residual_sample": residual_sample.launches}
-    launches.update(phase_serve(torch, device, sizes, profile))
-    if device.type == "cuda":
-        for name, count in launches.items():
-            check(count > 0, f"{name} launched on its main path")
+    paths = {"frontier": {"kw_queue": kw_queue.launches, "residual_sample": residual_sample.launches}}
+    kw_queue.launches = 0
+    phase_dag(torch, device, sizes)
+    paths["dag"] = {"kw_queue": kw_queue.launches}
+    paths["serve"] = phase_serve(torch, device, sizes, profile)
+    emit("launches", **paths)
+    launches: dict = {}
+    for path, counts in paths.items():
+        for name, count in counts.items():
+            if device.type == "cuda":
+                check(count > 0, f"{name} launched on the {path} path")
+            launches[name] = launches.get(name, 0) + count
 
     meta = {
         "kw_queue": ("src/repro_torch/csrc/kw_queue.cu", "src/repro/kernels/kw_queue.py:82"),
@@ -664,6 +1057,7 @@ def main() -> int:
     table = run("cuda", FULL, profile)
     if profile:
         phase_profile(torch, torch.device("cuda"), FULL)
+        phase_dag_profile(torch, torch.device("cuda"), FULL)
     print(json.dumps(table))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """repro_torch.faults — the declarative fault model (a copy of
 `repro.faults`, pure Python).  The port's fused planners fold the q
 task-failure law in through the geometric-retry transform
-(`repro_torch.fleet.vector.retry_transform`); the event engine that runs
-crashes and backoff exactly is not ported yet."""
+(`repro_torch.fleet.vector.retry_transform`); the event engine
+(`repro_torch.fleet.FleetSim`) runs crashes and backoff exactly."""
 
 from .model import (
     ChaosSchedule,

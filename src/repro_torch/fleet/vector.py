@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from functools import partial
 from typing import Optional, Sequence
 
@@ -55,6 +56,9 @@ from ..device import resolve_device
 from ..kernels.kw_queue import kw_queue as kw_queue_kernel
 from ..kernels.kw_queue import kw_queue_plain
 from ..kernels.residual_sampler import residual_sample
+from ..obs.device import DEFAULT_HIST, HistSpec, cell_histograms, sketch_from_device
+from ..obs.evtail import evt_keys
+from ..obs.trace import PID_PROFILER, get_recorder
 from .workload import MachineClass
 
 __all__ = [
@@ -79,13 +83,6 @@ __all__ = [
 
 #: device memory one chunk of cells may take for its single-job evaluation
 CELL_CHUNK_BYTES = 4 << 30
-
-#: the ROADMAP item that ports what `tail="hist"` needs
-_HIST_TODO = (
-    'tail="hist" needs repro.obs (sketch, device, evtail), which the port '
-    "does not have yet: ROADMAP Queue 1, item `obs/`"
-)
-
 
 @dataclasses.dataclass
 class VectorFleetResult:
@@ -425,8 +422,16 @@ def retry_transform(x, v, q):
     runs iff attempts 1..k all failed (v < q each), so the duration is
     x[..., 0] + Σ_k alive_k · x[..., k+1] with alive = cumprod(v < q).
     `q` is a float or a tensor that broadcasts against v (a leading cell
-    dimension gives one result per cell)."""
-    alive = torch.cumprod((v < q).to(x.dtype), dim=-1)
+    dimension gives one result per cell).  `alive` is the running product
+    of the 0/1 failure flags, taken as attempts - 2 elementwise products:
+    exact, so the values of `torch.cumprod`, whose scan along this short
+    last axis took 85% of a full-width DAG fault grid's device time on the
+    card (PERF.md, PR 15)."""
+    fail = (v < q).to(x.dtype)
+    alive = torch.empty_like(fail)
+    alive[..., 0] = fail[..., 0]
+    for j in range(1, fail.shape[-1]):
+        torch.mul(alive[..., j - 1], fail[..., j], out=alive[..., j])
     return x[..., 0] + (alive * x[..., 1:]).sum(dim=-1)
 
 
@@ -480,7 +485,8 @@ def _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel
     """Queue every (cell, trial) and reduce each cell to its stats row.
 
     arrivals, T, C: (cells, m, J).  Returns (stats (cells, 9 + classes),
-    sojourn (cells, m, J))."""
+    sojourn (cells, m, J), cost (cells, m, J) scaled by each job's slot
+    speed)."""
     c = speeds.shape[0]
     starts, fins, svc, slots = batched_queue(arrivals, T, speeds, kernel=kernel)
     soj = fins - arrivals
@@ -521,76 +527,60 @@ def _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel
         ],
         dim=1,
     )
-    return torch.cat([base, class_util], dim=1), soj
+    return torch.cat([base, class_util], dim=1), soj, cost
+
+
+def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk):
+    """Single-job (T, C) of every cell, each (cells, *shape), on ONE shared
+    draw set taken from the generator `g` (the reference's per-cell vmap).
+
+    `pol` is (modes, ks, ts, rs, keeps, ds) of lowered (cells, S) tensors,
+    with modes None for a grid wholly in the single-stage-quantile /
+    full-width domain, which takes the single-fork evaluator — the
+    host-side program selection of the reference.  `qs` (one per cell, with
+    the retry-draw width `attempts`) runs every draw through the
+    geometric-retry transform with its cell's q before the evaluator; None
+    takes the fault-free programs.  Cells are evaluated `chunk` at a time,
+    which changes no result.  The frontier draws once per grid; the DAG
+    engine once per stage."""
+    modes, ks, ts, rs, keeps, ds = pol
+    n_cells = ks.shape[0]
+    if qs is None:
+        if modes is None:
+            x, fresh = fork_draws(g, quantile, shape, n, r_cap)
+        else:
+            x, fresh = policy_draws(g, quantile, shape, n, r_cap, n_stages)
+        cm = running_min(fresh)[None]
+        x = x[None]
+        del fresh
+    else:
+        fresh_shape = tuple(shape) + ((n, r_cap) if modes is None else (n_stages, n, r_cap))
+        xr, xv = retry_draws(g, quantile, tuple(shape) + (n,), attempts)
+        fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
+    parts = []
+    for sl in _chunks(n_cells, chunk):
+        if qs is not None:
+            x = retry_transform(xr, xv, _cell(qs[sl], xv.ndim + 1))
+            cm = running_min(retry_transform(fr, fv, _cell(qs[sl], fv.ndim + 1)))
+            if modes is None:
+                x = torch.sort(x, dim=-1).values
+        if modes is None:
+            parts.append(_masked_cells(x, cm, ks[sl], rs[sl], keeps[sl]))
+        else:
+            parts.append(lowered_eval_cells(x, cm, modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl]))
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
 def _frontier_cells(
-    g, xs, pol, lams, speeds, slot_class, class_slots, dist, n, n_jobs, m_trials,
-    r_cap, n_stages, kernel, chunk,
-):
-    """Every (policy, λ) cell on one shared set of draws (the reference's
-    `_frontier_jit`).  `pol` is (modes, ks, ts, rs, keeps, ds) of lowered
-    (cells, S) tensors, with modes None for a grid wholly in the
-    single-stage-quantile/full-width domain, which takes the single-fork
-    evaluator — the host-side program selection of the reference."""
-    modes, ks, ts, rs, keeps, ds = pol
-    quantile = dist.quantile if dist is not None else partial(emp_quantile, xs)
-    shape = (m_trials, n_jobs)
-    n_cells = lams.shape[0]
-    if modes is None:
-        x_sorted, fresh = fork_draws(g, quantile, shape, n, r_cap)
-        cm = running_min(fresh)
-        del fresh
-        parts = [
-            _masked_cells(x_sorted[None], cm[None], ks[sl], rs[sl], keeps[sl])
-            for sl in _chunks(n_cells, chunk)
-        ]
-    else:
-        x, fresh = policy_draws(g, quantile, shape, n, r_cap, n_stages)
-        cm = running_min(fresh)
-        del fresh
-        parts = [
-            lowered_eval_cells(
-                x[None], cm[None], modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl]
-            )
-            for sl in _chunks(n_cells, chunk)
-        ]
-    T = torch.cat([p[0] for p in parts])
-    C = torch.cat([p[1] for p in parts])
-    arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
-    return _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
-
-
-def _frontier_faulty_cells(
     g, xs, pol, lams, qs, speeds, slot_class, class_slots, dist, n, n_jobs, m_trials,
     r_cap, n_stages, attempts, kernel, chunk,
 ):
-    """`_frontier_cells` under the q task-failure law (the reference's
-    `_frontier_faulty_jit`): every draw goes through the geometric-retry
-    transform with its cell's q before the policy evaluator, on one shared
-    retry-draw set.  fault=None never comes here (`_eval_cells` selects)."""
-    modes, ks, ts, rs, keeps, ds = pol
+    """Every (policy, λ [, q]) cell on one shared set of draws (the
+    reference's `_frontier_jit`, or `_frontier_faulty_jit` when `qs` is
+    given): the draws, then the arrivals, from the one generator `g`."""
     quantile = dist.quantile if dist is not None else partial(emp_quantile, xs)
     shape = (m_trials, n_jobs)
-    n_cells = lams.shape[0]
-    fresh_shape = shape + ((n, r_cap) if modes is None else (n_stages, n, r_cap))
-    xr, xv = retry_draws(g, quantile, shape + (n,), attempts)
-    fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
-    parts = []
-    for sl in _chunks(n_cells, chunk):
-        q_x = _cell(qs[sl], xv.ndim + 1)
-        q_f = _cell(qs[sl], fv.ndim + 1)
-        x = retry_transform(xr, xv, q_x)
-        cm = running_min(retry_transform(fr, fv, q_f))
-        if modes is None:
-            x_sorted = torch.sort(x, dim=-1).values
-            parts.append(_masked_cells(x_sorted, cm, ks[sl], rs[sl], keeps[sl]))
-        else:
-            parts.append(
-                lowered_eval_cells(x, cm, modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl])
-            )
-    T = torch.cat([p[0] for p in parts])
-    C = torch.cat([p[1] for p in parts])
+    T, C = cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk)
     arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
     return _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
 
@@ -624,6 +614,46 @@ def cell_bucket(n_cells: int) -> int:
     return b
 
 
+def _hist_spec(tail) -> Optional[HistSpec]:
+    """`tail` as the histogram layout of the hist path (None: exact)."""
+    if isinstance(tail, HistSpec):
+        return tail
+    if tail == "exact":
+        return None
+    if tail == "hist":
+        return DEFAULT_HIST
+    raise ValueError(f'tail must be "exact", "hist", or a HistSpec, got {tail!r}')
+
+
+def _tail_keys(soj, cost, hist):
+    """The percentile keys of every cell from its (cells, m, J) sojourns and
+    costs: (pcts (3, cells), cost_pcts, evt rows).  Exact: `np.percentile`
+    over the sojourns brought to the host (cost_pcts and evt None).  Hist:
+    both are counted into γ-bucket histograms on the device and only
+    (n_bins + 3) numbers per cell reach the host; the sketches rebuilt there
+    give the quantiles and the EVT tail keys (`obs.evtail.evt_keys`)."""
+    n_cells = soj.shape[0]
+    if hist is None:
+        pcts = np.percentile(soj.cpu().numpy().reshape(n_cells, -1), (50.0, 99.0, 99.9), axis=1)
+        return pcts, None, None
+    s_counts, s_agg, c_counts, c_agg = (
+        z.cpu().numpy() for pair in (cell_histograms(soj, hist), cell_histograms(cost, hist)) for z in pair
+    )
+    pcts = np.empty((3, n_cells))
+    cost_pcts = np.empty((3, n_cells))
+    cell_evt = []
+    for i in range(n_cells):
+        sk = sketch_from_device(s_counts[i], *s_agg[i], spec=hist)
+        pcts[:, i] = sk.quantiles((0.5, 0.99, 0.999))
+        # the sketch carries the whole tail shape, so each row also gets a
+        # GPD fitted on its exceedance buckets (evt_xi / evt_p999 /
+        # evt_p9999), past what the m·J sample resolves
+        cell_evt.append(evt_keys(sk))
+        ck = sketch_from_device(c_counts[i], *c_agg[i], spec=hist)
+        cost_pcts[:, i] = ck.quantiles((0.5, 0.99, 0.999))
+    return pcts, cost_pcts, cell_evt
+
+
 def _eval_cells(
     dist_or_samples,
     cell_policies: Sequence,
@@ -649,16 +679,18 @@ def _eval_cells(
     the faulty program.  `cell_chunk` sets the cells evaluated together
     (default: as many as `CELL_CHUNK_BYTES` allows); it changes no result.
     `pad_cells` is the reference's compile-sharing pad and is ignored: only
-    the real cells are evaluated.  The percentile keys are computed
-    host-side with `np.percentile`."""
+    the real cells are evaluated.  `tail="exact"` computes the percentile
+    keys host-side with `np.percentile`; `tail="hist"` (or a `HistSpec`)
+    from histograms counted on the device, and adds the cost_p* and evt_*
+    keys.  With a recorder enabled (`obs.enable()`), each call records a
+    `frontier_dispatch` span and adds its cells to the `frontier.cells`
+    counter; the reference's `obs.retrace` counter has no counterpart in
+    eager PyTorch (ROADMAP Queue 1 item 6)."""
     if not cell_policies:
         raise ValueError("need at least one candidate policy")
     if any(lam <= 0 for lam in cell_lams):
         raise ValueError("arrival rate lam must be > 0")
-    if tail == "hist" or not isinstance(tail, str):
-        raise NotImplementedError(_HIST_TODO)
-    if tail != "exact":
-        raise ValueError(f'tail must be "exact" or "hist", got {tail!r}')
+    hist = _hist_spec(tail)
     dev = resolve_device(device)
     dist, xs = as_quantile_source(dist_or_samples, dev)
     slot = _slot_arrays(n, c, classes, dev)
@@ -679,6 +711,7 @@ def _eval_cells(
     if (lowered.k < 0).any() or (lowered.k > n).any() or (lowered.r < 0).any():
         raise ValueError("lowered fork indices must lie in [0, n] and replica counts >= 0")
     lams = torch.tensor([float(lam) for lam in cell_lams], dtype=torch.float32, device=dev)
+    qs = None
     if cell_qs is not None:
         if len(cell_qs) != n_cells:
             raise ValueError("need one q per cell")
@@ -700,19 +733,22 @@ def _eval_cells(
         cell_chunk = cell_chunk_size(
             m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None
         )
-    g = _generator(seed, dev)
-    if cell_qs is None:
-        stats, soj = _frontier_cells(
-            g, xs, pol, lams, speeds, slot_class, class_slots, dist, n, n_jobs,
-            m_trials, r_cap, lowered.n_stages, kernel, cell_chunk,
+    rec = get_recorder()
+    if rec.enabled:
+        t0 = time.perf_counter()
+    stats, soj, cost = _frontier_cells(
+        _generator(seed, dev), xs, pol, lams, qs, speeds, slot_class, class_slots, dist,
+        n, n_jobs, m_trials, r_cap, lowered.n_stages, attempts, kernel, cell_chunk,
+    )
+    stats = stats.cpu().numpy()  # waits for the device
+    if rec.enabled:
+        rec.span(
+            "frontier_dispatch", "engine", t0, time.perf_counter() - t0, pid=PID_PROFILER,
+            args=dict(cells=n_cells, padded=n_cells, m_trials=m_trials, n_jobs=n_jobs,
+                      tail="exact" if hist is None else "hist"),
         )
-    else:
-        stats, soj = _frontier_faulty_cells(
-            g, xs, pol, lams, qs, speeds, slot_class, class_slots, dist, n, n_jobs,
-            m_trials, r_cap, lowered.n_stages, attempts, kernel, cell_chunk,
-        )
-    stats = stats.cpu().numpy()
-    pcts = np.percentile(soj.cpu().numpy().reshape(n_cells, -1), (50.0, 99.0, 99.9), axis=1)
+        rec.count("frontier.cells", n_cells)
+    pcts, cost_pcts, cell_evt = _tail_keys(soj, cost, hist)
     rows = []
     nk = len(_FRONTIER_KEYS)
     for i, (pol_i, lam) in enumerate(zip(cell_policies, cell_lams)):
@@ -722,6 +758,9 @@ def _eval_cells(
         if cell_qs is not None:
             d["q"] = float(cell_qs[i])
         d["p50"], d["p99"], d["p999"] = (float(pcts[j, i]) for j in range(3))
+        if hist is not None:
+            d["cost_p50"], d["cost_p99"], d["cost_p999"] = (float(cost_pcts[j, i]) for j in range(3))
+            d.update(cell_evt[i])
         if slot is not None:  # mirror VectorFleetResult.summary(): per-class util
             for name, u in zip(names, row[nk:]):
                 d[f"util_{name}"] = float(u)
@@ -800,7 +839,9 @@ def frontier(
     `fault` — a `FaultSpec` or a sequence of them — adds a q axis: cells =
     policies × λs × faults (q fastest) and rows gain a "q" key.  A single
     disabled spec (q=0) takes the fault-free program, so its rows equal
-    fault=None bit for bit.  `tail="hist"` is not ported yet.
+    fault=None bit for bit.  `tail="hist"` (or an `obs.HistSpec`) takes
+    the percentile keys from histograms counted on the device and adds
+    cost_p50/cost_p99/cost_p999 and the EVT keys evt_xi/evt_p999/evt_p9999.
     """
     policies = list(policies)
     lams = [float(lam) for lam in lams]

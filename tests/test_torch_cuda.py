@@ -414,3 +414,86 @@ def test_ssd_scan_bf16_reads_unaligned_inputs_on_card():
     x, B, C = shifted(x), shifted(B), shifted(C)
     assert x.data_ptr() % 16 != 0
     _ssd_check((x, dt, A, B, C, D), 64, 2e-1, 5e-2)
+
+
+# ------------------------------------------------------- the DAG path
+def _stage_inputs(cells, m, J, seed=3):
+    """Shared (cells, m, J) arrivals and two stages' gang makespans."""
+    rng = np.random.default_rng(seed)
+    arr = np.cumsum(rng.exponential(1.0, (m, J)), axis=1)[None] / np.array([0.3, 0.6, 0.9])[:cells, None, None]
+    T0 = 0.5 + rng.exponential(1.0, (cells, m, J))
+    T1 = 0.3 + rng.exponential(0.8, (cells, m, J))
+    return tuple(torch.from_numpy(np.ascontiguousarray(z, dtype=np.float32)) for z in (arr, T0, T1))
+
+
+def _two_stage_paths(dev, arr, T0, T1):
+    from repro_torch.dag.rollout import stage_queue
+
+    arr, T0, T1 = (z.to(dev) for z in (arr, T0, T1))
+    st0, fi0, sl0 = stage_queue(arr, T0, 3, in_order=True)
+    st1, fi1, sl1 = stage_queue(fi0, T1, 2)
+    return (st0, fi0, st1, fi1), (sl0, sl1)
+
+
+def test_dag_stage_composition_on_card_matches_the_cpu():
+    """The DAG's stage step (stable sort by barrier release → batched_queue
+    → scatter back) on the card (the CUDA kw_queue) and on the CPU
+    (kw_queue_plain), with the same releases and makespans."""
+    dev = _card()
+    arr, T0, T1 = _stage_inputs(3, 8, 700)
+    before = ops.kw_queue.launches
+    card_f, card_s = _two_stage_paths(dev, arr, T0, T1)
+    torch.cuda.synchronize()
+    assert ops.kw_queue.launches == before + 2
+    cpu_f, cpu_s = _two_stage_paths(torch.device("cpu"), arr, T0, T1)
+    for a, b in zip(card_s, cpu_s):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(card_f, cpu_f):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    # the reduce stage's releases really were out of job order
+    assert bool((cpu_f[1].diff(dim=-1) < 0).any())
+
+
+def test_dag_critical_attribution_on_card_matches_the_cpu():
+    """`_critical_attribution` of a fan-in DAG on the same arrays: shares
+    telescope to the sojourn on both sides."""
+    from repro_torch.dag.rollout import _critical_attribution
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    arr = np.cumsum(rng.exponential(1.0, (2, 4, 300)), axis=-1)
+    f1 = arr + rng.exponential(1.0, arr.shape)
+    f2 = arr + rng.exponential(1.0, arr.shape)
+    f2[..., ::7] = f1[..., ::7]  # ties: the first predecessor wins
+    r3 = np.maximum(f1, f2)
+    f3 = r3 + rng.exponential(0.5, arr.shape)
+    arrays = [torch.from_numpy(z.astype(np.float32)) for z in (arr, f1, f2, r3, f3)]
+    plan = ((4, 2, (), None), (4, 2, (), None), (2, 2, (0, 1), None))
+
+    def attr(d):
+        a, f1, f2, r3, f3 = (z.to(d) for z in arrays)
+        return _critical_attribution(a, [a, a, r3], [f1, f2, f3], plan, (2,))
+
+    soj_g, attrs_g = attr(dev)
+    soj_c, attrs_c = attr("cpu")
+    torch.testing.assert_close(soj_g.cpu(), soj_c, rtol=1e-6, atol=0.0)
+    for g, c in zip(attrs_g, attrs_c):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(sum(attrs_c), soj_c, rtol=1e-5, atol=1e-5)
+
+
+def test_device_histogram_on_card_matches_the_cpu():
+    """`cell_histograms` on the card against the CPU: counts equal but for
+    values within an ulp of a bin edge (at most 0.1% of them move to a
+    neighbouring bin); min, max and sum within rtol 1e-6."""
+    from repro_torch.obs.device import DEFAULT_HIST, cell_histograms
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(np.exp(rng.normal(0.5, 1.5, (6, 4096))).astype(np.float32))
+    cg, ag = cell_histograms(x.to(dev), DEFAULT_HIST)
+    cc, ac = cell_histograms(x, DEFAULT_HIST)
+    assert float(cg.sum()) == x.numel()
+    moved = float((cg.cpu() - cc).abs().sum()) / 2
+    assert moved <= 1e-3 * x.numel()
+    torch.testing.assert_close(ag.cpu(), ac, rtol=1e-6, atol=0.0)

@@ -273,5 +273,5 @@ def test_frontier_validations():
                         fault=FaultSpec(q=0.1, backoff_base=1.0))
     with pytest.raises(ValueError, match="pi_kill|π_kill"):
         vector.trace_kill_rollout(X_EMP, POLICIES[1], 0.1, N, 50, 2, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vector.frontier(DIST, POLICIES, (0.1,), N, 50, m_trials=2, tail="hist", device=CPU)
+    with pytest.raises(ValueError, match="tail"):
+        vector.frontier(DIST, POLICIES, (0.1,), N, 50, m_trials=2, tail="sketch", device=CPU)

@@ -63,6 +63,38 @@ def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch):
             call()
 
 
+
+def test_dag_and_controller_entry_points_default_to_the_card_and_never_fall_back(monkeypatch):
+    from repro_torch import dag
+    from repro_torch.fleet import FleetConfig, FleetPolicyController, FleetSim
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    two = dag.JobDAG.map_reduce(4, 2, ShiftedExp(1.0, 1.0), ShiftedExp(0.5, 2.0))
+    pol = SingleForkPolicy(0.25, 1, True)
+    calls = [
+        lambda: dag.dag_frontier(two, [two.policies()], (0.1,), 20, m_trials=2),
+        lambda: dag.dag_rollout(two, 0.1, 20, 2),
+        lambda: dag.exhaustive_search(two, [pol], 0.1, n_jobs=20, m_trials=2),
+        lambda: dag.coordinate_search(two, [pol], 0.1, n_jobs=20, m_trials=2),
+        lambda: FleetPolicyController(),
+        lambda: FleetSim(FleetConfig(capacity=8, adapt=True)),
+        lambda: dag.dag_frontier(two, [two.policies()], (0.1,), 20, m_trials=2, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the host-side event engine needs no card, and the CPU paths run
+    rep = dag.DagFleetSim(dag.DagFleetConfig(two)).run(dag.poisson_arrivals(5, 0.2))
+    assert len(rep.jobs) == 5
+    assert dag.dag_frontier(two, [two.policies()], (0.1,), 20, m_trials=2, device="cpu")
+    assert FleetPolicyController(device="cpu").device.type == "cpu"
+
+
+def test_frontier_hist_tail_is_ported():
+    rows = vector.frontier(ShiftedExp(1.0, 1.0), [SingleForkPolicy(0.1, 1, True)], (0.1,), 8, 20,
+                           m_trials=2, tail="hist", device="cpu")
+    assert {"cost_p99", "evt_xi", "evt_p999", "evt_p9999"} <= set(rows[0])
+
 def test_kw_queue_wrapper_refuses_what_the_kernel_does_not_take():
     a = torch.cumsum(torch.rand(4, 16), dim=1)
     s = torch.rand(4, 16) + 0.5
