@@ -38,25 +38,45 @@ JAX package.  Phases, one JSON line each:
             its plain version on the same inputs, prefill-then-decode
             consistency, and the prefill's logits with the kernels against
             those with the plain versions (gated in float32)
+  fleet_adaptive  benchmarks/bench_fleet.py's regime-change drill
+            (REGIME_SHIFT, 500 jobs of 16 tasks on 48 slots, c = 3) with
+            `FleetConfig(adapt=True)` planning on the card: its gates
+            `adaptive_reoptimized`, `adaptive_drift_fired` and
+            `adaptive_beats_best_fixed` against the six fixed policies on the
+            host, every re-plan's kw_queue call bit-equal to kw_queue_plain,
+            the first re-plan's rows within 5σ of the same search on the CPU
+  fleet_serve  `FleetHedgedServer(adapt=True)` on phase serve's model: 40
+            batches x 8 requests of 1024-token prompts (prefill plus one
+            greedy token) on 32 replicas (c = 4) at ρ = 0.7, two priority
+            classes with SLOs: values, kernel launches per prefill, the
+            re-plans' kw_queue calls bit-equal, the sketch tails against
+            np.percentile, the SLO report, the private trace's Chrome
+            round trip
 
-With `--profile`, one request's prefill and 8 decode steps (phase
-`serve_profile`), one more `frontier` call (phase `profile`), one more
+The profilers run after every timed phase: `obs.kernel_profile` over one
+re-plan's search (phase `fleet_adaptive_profile`), then, with `--profile`,
+one request's prefill and 8 decode steps (phase `serve_profile`), one
+more `frontier` call (phase `profile`), one more
 full-width `dag_frontier` call (phase `dag_profile`) and the fault grid of
 `dag_fault` (phase `dag_fault_profile`) run under torch.profiler: device
 time by kernel, the device's idle share.  Then the kernel table
 (`{"kernels": [...]}`), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Any failed check raises
 and the script exits nonzero without the last line; so does a machine
-without a card.  The launch counts in the kernel table come from the three
+without a card.  The launch counts in the kernel table come from the
 main paths only: kw_queue and residual_sample from the frontier path
 (counters set to 0 just before `frontier`, read after `frontier_hist`)
 plus kw_queue from the DAG path (set to 0 just before `dag`, read after
 `dag_event`), flash_attention and ssd_scan from the serve path (set to 0
-just before it, read just after).  The calls made only to compare with
-them (the kernels against their plain versions, the reference `frontier`
-of `dag_one_stage`, the rollouts that give the order statistics, the
-single-fork grid of `dag_general`) run under `uncounted` and are not in
-the counts.
+just before it, read just after), kw_queue from the controller's drill
+(phase `fleet_adaptive`) and kw_queue, flash_attention and ssd_scan from
+fleet-backed serving (phase `fleet_serve`), each set to 0 just before its
+phase and read just after.  The calls made only to compare with them (the
+kernels against their plain versions, the reference `frontier` of
+`dag_one_stage`, the rollouts that give the order statistics, the
+single-fork grid of `dag_general`, the re-plans' queues against
+kw_queue_plain, the first re-plan on the CPU, the profiled search, the
+fresh request) run under `uncounted` and are not in the counts.
 """
 
 from __future__ import annotations
@@ -117,6 +137,13 @@ FULL = dict(
     # each; the event oracle's grid is benchmarks/bench_dag.py's
     dag=dict(stages=(("map", 1026), ("shuffle", 488), ("reduce", 485)), c=4,
              n_jobs=2048, m_trials=16, event_jobs=400, event_trials=12),
+    # benchmarks/bench_fleet.py's adaptive lane: REGIME_SHIFT, 500 jobs of 16
+    # tasks on 48 slots (c = 3)
+    fleet_adaptive=dict(n_jobs=500),
+    # FleetHedgedServer on phase serve's model: 40 batches x 8 requests of
+    # 1024-token prompts, prefill plus one greedy token, on 32 replicas
+    # (c = 4) at rho = 0.7 under the baseline
+    fleet_serve=dict(capacity=32, requests=8, batches=40, prompt=1024, steps=1, rho=0.7, mc_reps=20000),
 )
 
 
@@ -176,14 +203,15 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> 
 def uncounted():
     """Launches of the block leave the kernels' launch counters as they
     were: for calls made only to compare a path with its reference."""
-    from repro_torch.kernels.kw_queue import kw_queue
-    from repro_torch.kernels.residual_sampler import residual_sample
+    from repro_torch.kernels import ops
 
-    saved = kw_queue.launches, residual_sample.launches
+    kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)
+    saved = [k.launches for k in kernels]
     try:
         yield
     finally:
-        kw_queue.launches, residual_sample.launches = saved
+        for k, n in zip(kernels, saved):
+            k.launches = n
 
 
 def job1_trace():
@@ -911,7 +939,7 @@ def prefill_checks(torch, model, params, tokens) -> dict:
                 plain_vs_plain_eps_embed=_rel_err(torch, logits_n, logits_p))
 
 
-def phase_serve(torch, device, sizes, profile: bool = False) -> dict:
+def phase_serve(torch, device, sizes) -> dict:
     """`repro_torch.launch.serve` as a user runs it, with the counters of
     its kernels set to 0 just before and read just after; then checks on
     one request's prefill.
@@ -969,8 +997,6 @@ def phase_serve(torch, device, sizes, profile: bool = False) -> dict:
     }
     f32 = prefill_checks(torch, build_model(cfg32), params32, tokens)
     del params32
-    if profile:
-        profile_serving(torch, model, params, tokens, steps=8)
     check(f32["kernels_vs_plain"] < 2e-2, f"float32 prefill logits, kernels vs plain: {f32['kernels_vs_plain']:.3g} < 2e-2")
     for name, got in (("bfloat16", bf16), ("float32", f32)):
         check(got["decode_vs_prefill"] < 0.05,
@@ -988,6 +1014,214 @@ def phase_serve(torch, device, sizes, profile: bool = False) -> dict:
          batches=[dataclasses.asdict(st) for st in res.stats],
          final_policy=res.stats[-1].policy, controller_policy=res.server.controller.current_policy().label(),
          kernel_calls_vs_plain_max_abs_err=errors, bfloat16=bf16, float32=f32)
+    return launches, res
+
+
+@contextlib.contextmanager
+def captured_searches(log: list):
+    """While the block runs, every call of `fleet.vector.policy_search` (a
+    controller's re-plan) appends its arguments, its rows and its wall
+    seconds to `log`, then returns its rows as it would."""
+    from repro_torch.fleet import vector
+
+    inner = vector.policy_search
+
+    def recorded(*args, **kwargs):
+        t0 = time.perf_counter()
+        rows = inner(*args, **kwargs)
+        log.append(dict(args=args, kwargs=kwargs, rows=rows, wall_s=time.perf_counter() - t0))
+        return rows
+
+    vector.policy_search = recorded
+    try:
+        yield
+    finally:
+        vector.policy_search = inner
+
+
+def queue_calls_bit_equal(torch, calls, what) -> dict:
+    """Each captured kw_queue call against kw_queue_plain on its own
+    inputs: all four outputs bit for bit."""
+    from repro_torch.kernels.kw_queue import kw_queue, kw_queue_plain
+
+    with uncounted():
+        for i, (arrivals, services, speeds) in enumerate(calls):
+            got, want = kw_queue(arrivals, services, speeds), kw_queue_plain(arrivals, services, speeds)
+            for name, a, b in zip(("starts", "finishes", "services", "slots"), got, want):
+                check(torch.equal(a, b), f"{what} kw_queue call {i} {tuple(arrivals.shape)}: {name} bit-equal")
+    return dict(calls=len(calls), shapes=sorted({(*arrivals.shape, int(speeds.shape[0])) for arrivals, _, speeds in calls}),
+                tolerance="all four outputs bit-equal")
+
+
+def search_vs_cpu(search) -> float:
+    """The largest |Δ mean_sojourn| / hypot(stderr) between a captured
+    re-plan's rows and the same `policy_search` call on the CPU (another
+    random stream, so the rows agree within the Monte Carlo error)."""
+    from repro_torch.fleet import vector
+
+    with uncounted():
+        cpu = vector.policy_search(*search["args"], **{**search["kwargs"], "device": "cpu"})
+    check([r["label"] for r in cpu] == [r["label"] for r in search["rows"]], "re-plan rows in candidate order")
+    return max(abs(a["mean_sojourn"] - b["mean_sojourn"]) / math.hypot(a["sojourn_std_err"], b["sojourn_std_err"])
+               for a, b in zip(search["rows"], cpu))
+
+
+def _replan_walls(searches) -> dict:
+    walls = [s["wall_s"] for s in searches]
+    return dict(first=walls[0], median=float(np.median(walls[1:] or walls)), all=walls)
+
+
+def phase_fleet_adaptive(torch, device, sizes) -> dict:
+    """The regime-change drill of benchmarks/bench_fleet.py's adaptive lane
+    with the load-aware controller planning on `device`: every re-plan's
+    `policy_search` queues through kw_queue there.  The six fixed policies
+    run on the host's event engine as that benchmark runs them.  Gates:
+    `adaptive_reoptimized`, `adaptive_drift_fired`,
+    `adaptive_beats_best_fixed`; each re-plan's kw_queue call bit-equal to
+    kw_queue_plain; the first re-plan's rows within 5σ of the same search
+    on the CPU.  Returns the first re-plan's search for
+    `phase_fleet_adaptive_profile`."""
+    from repro_torch.fleet import REGIME_SHIFT, FleetConfig, FleetSim
+    from repro_torch.kernels.kw_queue import kw_queue
+
+    sc, n_jobs = REGIME_SHIFT, sizes["fleet_adaptive"]["n_jobs"]
+    jobs = sc.workload(n_jobs)
+    pre_jobs = jobs[: sc.shift_index(n_jobs)]
+    t0 = time.perf_counter()
+    fixed, best = [], None
+    for pol in sc.fixed_grid:
+        cfg = FleetConfig(capacity=sc.capacity, policy=pol, seed=sc.seed)
+        fixed.append(dict(policy=pol.label(), pre_shift_sojourn=FleetSim(cfg).run(pre_jobs).stats.mean_sojourn,
+                          full_sojourn=FleetSim(cfg).run(jobs).stats.mean_sojourn))
+        if best is None or fixed[-1]["pre_shift_sojourn"] < best["pre_shift_sojourn"]:
+            best = fixed[-1]
+    fixed_s = time.perf_counter() - t0
+
+    calls, searches = [], []
+    before = kw_queue.launches
+    with captured_queue_calls(calls), captured_searches(searches):
+        rep, wall, peak = _timed_call(torch, device, lambda: FleetSim(FleetConfig(
+            capacity=sc.capacity, adapt=True, seed=sc.seed, device=device)).run(jobs))
+    launches = kw_queue.launches - before
+    ctrl = rep.controller
+    check(ctrl.device == device, f"the controller plans on {device}")
+    gates = dict(adaptive_reoptimized=bool(ctrl.history), adaptive_drift_fired=ctrl.n_drifts >= 1,
+                 adaptive_beats_best_fixed=rep.stats.mean_sojourn < best["full_sojourn"])
+    for name, ok in gates.items():
+        check(ok, f"{name}: re-plans {len(ctrl.history)}, drifts {ctrl.n_drifts}, adaptive "
+                  f"{rep.stats.mean_sojourn} vs best fixed {best['policy']} {best['full_sojourn']}")
+    check(len(searches) == len(ctrl.history), f"one search per re-plan ({len(searches)} vs {len(ctrl.history)})")
+    check(len(calls) == len(searches), f"one kw_queue call per re-plan ({len(calls)})")
+    if device.type == "cuda":
+        check(launches == len(calls), f"every re-plan's queue launched kw_queue ({launches} of {len(calls)})")
+    queues = queue_calls_bit_equal(torch, calls, "re-plan")
+    sigma = search_vs_cpu(searches[0])
+    check(sigma < 5.0, f"first re-plan on {device} vs the CPU: {sigma:.2f} sigma")
+    emit("fleet_adaptive", n_jobs=n_jobs, n_tasks=sc.n_tasks, capacity=sc.capacity, c=sc.capacity // sc.n_tasks,
+         wall_s=wall, fixed_grid_s=fixed_s, peak_bytes=peak, replans=len(ctrl.history), drifts=ctrl.n_drifts,
+         triggers=[d.trigger for d in ctrl.history], adaptive_sojourn=rep.stats.mean_sojourn, best_fixed=best,
+         fixed=fixed, gates=gates, replan_wall_s=_replan_walls(searches),
+         replan_share_of_wall=sum(s["wall_s"] for s in searches) / wall, kw_queue_launches=launches,
+         kw_queue=queues, first_replan_vs_cpu_sigma=sigma, final_policy=ctrl.current_policy().label())
+    return searches[0]
+
+
+def phase_fleet_adaptive_profile(torch, device, search) -> None:
+    """`obs.kernel_profile` over one re-plan's `policy_search` call (the
+    first of phase `fleet_adaptive`): compile_s, wall_s, device ms by
+    kernel, peak bytes."""
+    from repro_torch.fleet import vector
+    from repro_torch.obs import kernel_profile
+
+    with uncounted():
+        prof = kernel_profile(lambda: vector.policy_search(*search["args"], **search["kwargs"]),
+                              name="policy_search", repeats=5, device=device)
+    emit("fleet_adaptive_profile", **prof)
+
+
+def phase_fleet_serve(torch, device, sizes, served) -> dict:
+    """`FleetHedgedServer` on phase serve's model and weights: batches of
+    requests queue for a finite replica pool at ρ = 0.7 under the baseline,
+    the load-aware controller re-plans on `device` through kw_queue, and
+    every request's value is the model's prefill plus greedy token
+    (`launch.serve.RequestFn`), computed after the simulation as the
+    server does.  Returns the kernel launches of the served stream."""
+    from repro_torch.core import BASELINE, Pareto, simulate
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RequestFn
+    from repro_torch.obs import SLO, load_chrome_trace, to_chrome_trace
+    from repro_torch.runtime import FleetHedgedServer
+
+    fs = sizes["fleet_serve"]
+    model, params, cfg = served.model, served.params, served.model.config
+    n, cap, nb = fs["requests"], fs["capacity"], fs["batches"]
+    c = cap // n
+    dist = Pareto(1.7, 0.040)  # launch.serve's default latency law
+    base = simulate(dist, BASELINE, n, m=fs["mc_reps"], seed=0, device=device)
+    lam = fs["rho"] * c / base.mean_latency
+    rng = np.random.default_rng(1)
+    batches = [[rng.integers(0, cfg.vocab, size=fs["prompt"]) for _ in range(n)] for _ in range(nb)]
+    priorities = [i % 2 for i in range(nb)]
+    slos = {0: SLO("interactive-p99", threshold=1.0, quantile=0.99, windows=(1.0, 4.0)),
+            1: SLO("batch-p99", threshold=2.0, quantile=0.99, windows=(1.0, 4.0))}
+    serve_fn = RequestFn(model, params, fs["prompt"], fs["steps"], device)
+    server = FleetHedgedServer(capacity=cap, latency_dist=dist, serve_fn=serve_fn, adapt=True, seed=0, obs=True,
+                               slos=slos, device=device)
+    kernels = {"kw_queue": ops.kw_queue, "flash_attention": ops.flash_attention, "ssd_scan": ops.ssd_scan}
+    before = {k: f.launches for k, f in kernels.items()}
+    calls, searches = [], []
+    with captured_queue_calls(calls), captured_searches(searches):
+        (outcomes, stats), wall, peak = _timed_call(torch, device, lambda: server.serve_stream(
+            batches, rate=lam, seed=0, priorities=priorities))
+    launches = {k: f.launches - before[k] for k, f in kernels.items()}
+    prefill_ms = [t * 1e3 for t in serve_fn.prefill_s]
+
+    served_n = n * nb
+    check(len(outcomes) == nb and not any(o.failed for o in outcomes), f"{nb} batches served")
+    check(all(len(o.values) == n and all(v.shape == (fs["steps"],) for v in o.values) for o in outcomes),
+          f"every batch has {n} values of {fs['steps']} tokens")
+    check(len(prefill_ms) == served_n and serve_fn.logits_finite, f"{served_n} prefills, every logit finite")
+    with uncounted():
+        fresh = serve_fn(batches[0][0])
+    check(np.array_equal(outcomes[0].values[0], fresh), "request 0's value equals a fresh call")
+    if device.type == "cuda":
+        want = {"flash_attention": len(model._hybrid_segments()) * served_n, "ssd_scan": cfg.n_layers * served_n}
+        check({k: launches[k] for k in want} == want, f"kernel launches of the served stream {launches} vs {want}")
+        check(launches["kw_queue"] == len(calls) > 0, f"kw_queue launched by every re-plan ({launches['kw_queue']})")
+    queues = queue_calls_bit_equal(torch, calls, "serving re-plan")
+    ctrl = server.controller
+    check(len(ctrl.history) >= 2 and len(searches) == len(ctrl.history), f"re-plans while serving: {len(ctrl.history)}")
+
+    tails = server.tail_latencies()
+    check(sorted(tails) == [0, 1], "tails for both priorities")
+    tail_dev = {}
+    for pri, t in tails.items():
+        soj = np.array([o.sojourn for o, p in zip(outcomes, priorities) if p == pri])
+        rel_acc = server.metrics.histogram("serve.sojourn", labels={"priority": str(pri)}).sketch.rel_acc
+        for q, key in ((0.5, "p50"), (0.99, "p99")):
+            # the sketch reads the sample of rank floor(q·(N-1)), which is
+            # np.percentile's "lower" method
+            want = float(np.percentile(soj, 100 * q, method="lower"))
+            tail_dev[f"{pri}/{key}"] = abs(t[key] - want) / want
+            check(tail_dev[f"{pri}/{key}"] <= rel_acc * (1 + 1e-9),
+                  f"priority {pri} {key}: sketch {t[key]} vs np.percentile {want} (rel_acc {rel_acc})")
+    report = server.slo_report()
+    check(sorted(report) == [0, 1], "slo_report has both classes")
+    rec = server._rec
+    back = load_chrome_trace(json.loads(json.dumps(to_chrome_trace(rec))))
+    check(len(back.spans) == len(rec.spans) > 0, "every span round-trips through the Chrome trace")
+    for a, b in zip(rec.spans, back.spans):
+        check((a.name, a.cat, a.pid, a.tid, a.args) == (b.name, b.cat, b.pid, b.tid, b.args)
+              and math.isclose(a.ts, b.ts, rel_tol=1e-12, abs_tol=1e-12)
+              and math.isclose(a.dur, b.dur, rel_tol=1e-12, abs_tol=1e-12), f"span {a.name} round-trips")
+    emit("fleet_serve", arch=cfg.arch_id, capacity=cap, requests_per_batch=n, c=c, batches=nb, prompt=fs["prompt"],
+         steps=fs["steps"], lam=lam, e_t_baseline=base.mean_latency, e_t_baseline_stderr=base.latency_std_err,
+         wall_s=wall, prefill_ms=dict(first=prefill_ms[0], median=float(np.median(prefill_ms[1:]))),
+         replan_wall_s=_replan_walls(searches), replans=len(ctrl.history), peak_bytes=peak, launches=launches,
+         kw_queue=queues, final_policy=ctrl.current_policy().label(), mean_sojourn=stats.mean_sojourn,
+         p99_sojourn=stats.p99_sojourn, tails=tails, tail_rel_dev_vs_np_percentile=tail_dev,
+         slo={p: dict(burn_rates=r["burn_rates"], violation_frac=r["violation_frac"]) for p, r in report.items()},
+         trace_spans=len(rec.spans))
     return launches
 
 
@@ -995,7 +1229,7 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     """Every phase but the device line; returns the kernel table."""
     import torch
 
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels.kw_queue import kw_queue
     from repro_torch.kernels.residual_sampler import residual_sample
 
@@ -1014,8 +1248,22 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     kw_queue.launches = 0
     phase_dag(torch, device, sizes)
     paths["dag"] = {"kw_queue": kw_queue.launches}
-    paths["serve"] = phase_serve(torch, device, sizes, profile)
+    paths["serve"], served = phase_serve(torch, device, sizes)
+    kw_queue.launches = 0
+    first_replan = phase_fleet_adaptive(torch, device, sizes)
+    paths["fleet_adaptive"] = {"kw_queue": kw_queue.launches}
+    for kernel in (ops.kw_queue, ops.flash_attention, ops.ssd_scan):
+        kernel.launches = 0
+    phase_fleet_serve(torch, device, sizes, served)
+    paths["fleet_serve"] = {k: getattr(ops, k).launches for k in ("kw_queue", "flash_attention", "ssd_scan")}
     emit("launches", **paths)
+    # torch.profiler only after every timed phase, so that no timing
+    # follows a profiler session
+    phase_fleet_adaptive_profile(torch, device, first_replan)
+    if profile:
+        tokens = torch.as_tensor(served.requests[0], dtype=torch.int32, device=device)[None, :]
+        profile_serving(torch, served.model, served.params, tokens, steps=8)
+    del served
     launches: dict = {}
     for path, counts in paths.items():
         for name, count in counts.items():

@@ -38,6 +38,7 @@ from .simulate import (  # noqa: F401
     simulate,
     simulate_multifork,
     single_fork_batch,
+    single_fork_trial,
 )
 from .residual import ResidualDistribution  # noqa: F401
 from .analysis import (  # noqa: F401

@@ -40,6 +40,7 @@ __all__ = [
     "simulate",
     "simulate_multifork",
     "single_fork_batch",
+    "single_fork_trial",
 ]
 
 
@@ -89,6 +90,12 @@ def single_fork_batch(generator, dist: Distribution, n: int, s: int, r: int, kee
     latency = t1 + y.amax(dim=-1)
     cost = (c1 + (r + 1) * y.sum(dim=-1)) / n
     return latency, cost
+
+
+def single_fork_trial(generator, dist: Distribution, n: int, s: int, r: int, keep: bool):
+    """One job's (T, C): `single_fork_batch` with an empty batch shape
+    (the same draws from the same generator state)."""
+    return single_fork_batch(generator, dist, n, s, r, keep, shape=())
 
 
 # --------------------------------------------------------------------------

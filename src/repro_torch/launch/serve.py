@@ -59,38 +59,59 @@ class ServeRun:
     logits_finite: bool  # every prefill and decode logit of every request
 
 
+class RequestFn:
+    """The function that serves one request on `model` with `params`: the
+    prefill of a `prompt`-token prompt, then greedy decoding to `steps`
+    new tokens; returns the (steps,) tokens as numpy.  It keeps, per
+    request served, the prefill's wall seconds (`prefill_s`) and those of
+    its decode steps (`decode_s`), and counts non-finite logits on the
+    device (`logits_finite`).  `HedgedServer` and `FleetHedgedServer` take
+    it as their `serve_fn`."""
+
+    def __init__(self, model, params, prompt: int, steps: int, device):
+        self.model, self.params = model, params
+        self.prompt, self.steps = prompt, steps
+        self.device = torch.device(device)
+        self.prefill_s: list = []
+        self.decode_s: list = []
+        self._nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)  # summed on the device
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def logits_finite(self) -> bool:
+        return int(self._nonfinite) == 0
+
+    def __call__(self, prompt_tokens) -> np.ndarray:
+        model, params = self.model, self.params
+        tokens = torch.as_tensor(prompt_tokens, dtype=torch.int32, device=self.device)[None, :]
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        self._nonfinite.add_((~torch.isfinite(logits)).sum())
+        cache = model.grow_cache(cache, self.prompt + self.steps)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        self._sync()
+        t1 = time.perf_counter()
+        out = [tok]
+        for i in range(self.steps - 1):
+            logits, cache = model.decode_step(params, cache, tok, self.prompt + i)
+            self._nonfinite.add_((~torch.isfinite(logits)).sum())
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+        result = torch.stack(out, dim=1)[0].cpu().numpy()
+        self.prefill_s.append(t1 - t0)
+        self.decode_s.append(time.perf_counter() - t1)
+        return result
+
+
 def run(args: argparse.Namespace, log=print) -> ServeRun:
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg)
     params = model.init(seed=args.seed, device=dev)
-    total = args.prompt + args.steps
-    prefill_s, decode_s = [], []
-    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)  # summed on the device
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    def serve_request(prompt_tokens):
-        tokens = torch.as_tensor(prompt_tokens, dtype=torch.int32, device=dev)[None, :]
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens})
-        nonfinite.add_((~torch.isfinite(logits)).sum())
-        cache = model.grow_cache(cache, total)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        sync()
-        t1 = time.perf_counter()
-        out = [tok]
-        for i in range(args.steps - 1):
-            logits, cache = model.decode_step(params, cache, tok, args.prompt + i)
-            nonfinite.add_((~torch.isfinite(logits)).sum())
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            out.append(tok)
-        result = torch.stack(out, dim=1)[0].cpu().numpy()
-        prefill_s.append(t1 - t0)
-        decode_s.append(time.perf_counter() - t1)
-        return result
+    serve_request = RequestFn(model, params, args.prompt, args.steps, dev)
 
     dist = Pareto(alpha=1.7, xm=0.040) if args.dist == "pareto" else ShiftedExp(0.04, 20.0)
     server = HedgedServer(
@@ -114,7 +135,8 @@ def run(args: argparse.Namespace, log=print) -> ServeRun:
         stats.append(st)
         log(f"{b:5d}  {st.policy:30s} {st.latency:7.3f} {st.p50:7.3f} {st.p99:7.3f} {st.cost:7.3f}")
     return ServeRun(
-        model, params, server, requests, outputs, stats, prefill_s, decode_s, int(nonfinite) == 0
+        model, params, server, requests, outputs, stats, serve_request.prefill_s,
+        serve_request.decode_s, serve_request.logits_finite,
     )
 
 

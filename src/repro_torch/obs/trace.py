@@ -24,8 +24,8 @@ own trace" work.
 
 Span/instant pids partition the trace into Perfetto "processes":
 scheduler lifecycle rows, controller decisions, serving, kernel
-profiling, and one row per DAG stage.  The reference's `repro.obs.export`
-turns a Recorder into Chrome trace-event JSON (not ported yet).
+profiling, and one row per DAG stage.  `repro_torch.obs.export` turns a
+Recorder into Chrome trace-event JSON.
 """
 
 from __future__ import annotations

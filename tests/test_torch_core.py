@@ -203,6 +203,24 @@ def test_single_fork_cells_lowered_equal_masked_bitwise():
 DIST = (1.0, 1.0)  # ShiftedExp(delta, mu)
 
 
+@pytest.mark.parametrize("s,r,keep", [(0, 0, True), (3, 1, True), (4, 2, False), (2, 0, False)])
+def test_single_fork_trial_is_single_fork_batch_with_an_empty_shape(s, r, keep):
+    """`single_fork_trial` draws what `single_fork_batch(shape=())` draws
+    from the same generator state, and leaves the generator where it does;
+    exported as the reference exports it."""
+    from repro_torch.core import single_fork_trial
+
+    dist, n = TShiftedExp(*DIST), 12
+    g_trial, g_batch = (torch.Generator().manual_seed(9) for _ in range(2))
+    for _ in range(3):
+        got = single_fork_trial(g_trial, dist, n, s, r, keep)
+        want = tsim.single_fork_batch(g_batch, dist, n, s, r, keep, shape=())
+        assert got[0].shape == () and got[1].shape == ()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(g_trial.get_state(), g_batch.get_state())
+    assert "single_fork_trial" in tsim.__all__ and "single_fork_trial" in jsim.__all__
+
+
 @pytest.mark.parametrize(
     "build",
     [

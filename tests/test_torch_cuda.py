@@ -497,3 +497,44 @@ def test_device_histogram_on_card_matches_the_cpu():
     moved = float((cg.cpu() - cc).abs().sum()) / 2
     assert moved <= 1e-3 * x.numel()
     torch.testing.assert_close(ag.cpu(), ac, rtol=1e-6, atol=0.0)
+
+
+# the controller's re-plan queues: policy_search at search_jobs = 192 (one
+# launch, J <= SEGMENT_JOBS), 29 candidates x 8 trials = 232 rows, c = 3
+# (REGIME_SHIFT's 48 slots / 16 tasks) and c = 4 (32 replicas / 8 requests)
+@pytest.mark.parametrize("c,load", [(3, 0.5), (3, 0.95), (4, 0.7), (4, 1.2)])
+def test_kw_queue_at_the_replan_shapes_is_bit_equal_on_card(c, load):
+    dev = _card()
+    arr, svc, _ = _kw_load_inputs(232, 192, c, load, seed=c * 10 + int(load * 10))
+    _kw_bit_equal(arr, svc, np.ones(c, np.float32), dev)
+
+
+def test_adaptive_controller_replans_on_card_within_5_sigma_of_the_cpu(monkeypatch):
+    """`FleetSim(REGIME_SHIFT, adapt=True)` with the controller on the card:
+    it re-plans through kw_queue, and its first re-plan's rows agree with
+    the same `policy_search` call on the CPU within 5 combined standard
+    errors (another random stream)."""
+    from repro_torch.fleet import REGIME_SHIFT, FleetConfig, FleetSim
+
+    dev = _card()
+    sc = REGIME_SHIFT
+    searches = []
+    inner = vector.policy_search
+
+    def recorded(*args, **kwargs):
+        rows = inner(*args, **kwargs)
+        searches.append((args, kwargs, rows))
+        return rows
+
+    monkeypatch.setattr(vector, "policy_search", recorded)
+    before = ops.kw_queue.launches
+    rep = FleetSim(FleetConfig(capacity=sc.capacity, adapt=True, seed=sc.seed, device=dev)).run(sc.workload(200))
+    assert rep.controller.device.type == "cuda"
+    assert len(rep.controller.history) >= 1 and len(searches) == len(rep.controller.history)
+    assert ops.kw_queue.launches - before == len(searches)
+    args, kwargs, rows = searches[0]
+    cpu = inner(*args, **{**kwargs, "device": "cpu"})
+    assert [r["label"] for r in cpu] == [r["label"] for r in rows]
+    for a, b in zip(rows, cpu):
+        sigma = np.hypot(a["sojourn_std_err"], b["sojourn_std_err"])
+        assert abs(a["mean_sojourn"] - b["mean_sojourn"]) / sigma < 5.0

@@ -153,6 +153,28 @@ def test_serving_entry_points_default_to_the_card_and_never_fall_back(monkeypatc
             call()
 
 
+def test_fleet_serving_and_profile_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.core import ShiftedExp as SE
+    from repro_torch.dag import JobDAG
+    from repro_torch.obs import kernel_profile
+    from repro_torch.runtime import FleetHedgedServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    two = JobDAG.map_reduce(4, 2, SE(1.0, 1.0), SE(0.5, 2.0))
+    calls = [
+        lambda: FleetHedgedServer(capacity=8, latency_dist=SE(1.0, 1.0), serve_fn=lambda r: r),
+        lambda: FleetHedgedServer(capacity=8, latency_dist=SE(1.0, 1.0), serve_fn=lambda r: r, adapt=False),
+        lambda: FleetHedgedServer(dag=two, serve_fn=lambda r: r),
+        lambda: kernel_profile(lambda x: x + 1, torch.ones(3)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    srv = FleetHedgedServer(capacity=8, latency_dist=SE(1.0, 1.0), serve_fn=lambda r: r, device="cpu")
+    assert srv.device.type == "cpu" and srv.controller.device.type == "cpu"
+    assert "peak_bytes" not in kernel_profile(lambda x: x + 1, torch.ones(3), repeats=1, device="cpu")
+
+
 def test_flash_attention_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.randn(1, 8, 2, 64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
