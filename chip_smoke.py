@@ -31,6 +31,24 @@ JAX package.  Phases, one JSON line each:
   dag_event the port's event engine (`DagFleetSim`, host) against
             `dag_frontier` (card) on the two-stage grid of the reference's
             benchmarks/bench_dag.py: within 5σ on E[T], 0.1 on E[C]
+  serve_moe `repro_torch.launch.serve --arch moonshot-v1-16b-a3b` at full
+            width and depth (48 layers, 28.89 B parameters, bf16, seed-0
+            weights), 2 batches x 4 requests of 1024 prompt tokens and 8
+            new tokens under `HedgedServer(adapt=True)`: flash launches =
+            48 x prefills, every flash call of one prefill against its
+            plain version, the share of routed assignments the capacity
+            factor 1.25 drops, the byte and FLOP bounds of a prefill and of
+            a decode token; then, on the first 4 layers in float32, the
+            prefill with the kernels against the plain versions and
+            prefill-then-decode at the drop-free capacity
+  configs   each of gemma-2b, stablelm-3b, whisper-small, deepseek-v2-236b
+            (2 of its 60 layers), qwen3-32b and llava-next-34b at its
+            published widths, one model on the card at a time: two
+            requests of 1024 prompt tokens (plus whisper's 1500 encoder
+            frames, llava's 576 patches) and 4 decode steps through
+            `launch.serve.RequestFn`, flash launches = decoder layers x
+            prefills, every flash call of a third request against its plain
+            version, deepseek's absorbed MLA decode against the naive one
   serve     `repro_torch.launch.serve` at full width: Zamba2-1.2B in bf16
             with seed-0 weights, 2 batches x 8 requests of 1024 prompt
             tokens and 32 new tokens under `HedgedServer(adapt=True)`;
@@ -55,8 +73,9 @@ JAX package.  Phases, one JSON line each:
 
 The profilers run after every timed phase: `obs.kernel_profile` over one
 re-plan's search (phase `fleet_adaptive_profile`), then, with `--profile`,
-one request's prefill and 8 decode steps (phase `serve_profile`), one
-more `frontier` call (phase `profile`), one more
+one request's prefill and 8 decode steps (phase `serve_profile`), the
+same for moonshot-v1-16b-a3b with 4 decode steps (phase
+`serve_moe_profile`), one more `frontier` call (phase `profile`), one more
 full-width `dag_frontier` call (phase `dag_profile`) and the fault grid of
 `dag_fault` (phase `dag_fault_profile`) run under torch.profiler: device
 time by kernel, the device's idle share.  Then the kernel table
@@ -68,7 +87,9 @@ main paths only: kw_queue and residual_sample from the frontier path
 (counters set to 0 just before `frontier`, read after `frontier_hist`)
 plus kw_queue from the DAG path (set to 0 just before `dag`, read after
 `dag_event`), flash_attention and ssd_scan from the serve path (set to 0
-just before it, read just after), kw_queue from the controller's drill
+just before it, read just after), flash_attention from the MoE serve
+path and from the configs path (each set to 0 just before its phase and
+read just after), kw_queue from the controller's drill
 (phase `fleet_adaptive`) and kw_queue, flash_attention and ssd_scan from
 fleet-backed serving (phase `fleet_serve`), each set to 0 just before its
 phase and read just after.  The calls made only to compare with them (the
@@ -76,7 +97,9 @@ kernels against their plain versions, the reference `frontier` of
 `dag_one_stage`, the rollouts that give the order statistics, the
 single-fork grid of `dag_general`, the re-plans' queues against
 kw_queue_plain, the first re-plan on the CPU, the profiled search, the
-fresh request) run under `uncounted` and are not in the counts.
+fresh request, the MoE model's checked prefills, drop count and float32
+checks, each config's checked request and MLA check) run under
+`uncounted` and are not in the counts.
 """
 
 from __future__ import annotations
@@ -129,10 +152,22 @@ FULL = dict(
     kw_shape=(512, 2048), kw_loads=(0.7, 0.85, 1.2), residual_shape=(32768, 103, 3),
     kernel_reps=20, plain_reps=3, mc_reps=4000,
     # one Zamba2-1.2B prefill of 1024 tokens: attention (B, S, H, D) and
-    # SSM (Bt, S, H, P, G, N, chunk), both bf16
-    flash_shape=(1, 1024, 32, 64), ssd_shape=(1, 1024, 64, 64, 1, 64, 128),
+    # SSM (Bt, S, H, P, G, N, chunk), both bf16; then one moonshot-v1-16b-a3b
+    # prefill's attention (timed too)
+    flash_shapes=((1, 1024, 32, 64), (1, 1024, 16, 128)), ssd_shape=(1, 1024, 64, 64, 1, 64, 128),
     flash_cases=FLASH_CASES + FLASH_BF16_CASES, ssd_cases=SSD_CASES + SSD_BF16_CASES,
     serve=dict(arch="zamba2-1.2b", reduced=False, requests=8, batches=2, prompt=1024, steps=32),
+    # moonshot-v1-16b-a3b at full width and depth: 2 batches x 4 requests of
+    # 1024 prompt tokens and 8 new tokens; the float32 checks on its first 4
+    # layers (bf16 48 layers: 53.8 GiB; float32: 108 GiB)
+    serve_moe=dict(arch="moonshot-v1-16b-a3b", reduced=False, requests=4, batches=2, prompt=1024, steps=8,
+                   f32_layers=4),
+    # the other six new configs at their published widths, full depth but
+    # deepseek-v2-236b's (446 GiB in bf16; 2 of its 60 layers, 17 GB): two
+    # counted requests of 1024 prompt tokens plus 4 decode steps (the second
+    # timed warm), a third with every flash call checked
+    configs=dict(archs=("gemma-2b", "stablelm-3b", "whisper-small", "deepseek-v2-236b", "qwen3-32b",
+                        "llava-next-34b"), reduced=False, layers={"deepseek-v2-236b": 2}, prompt=1024, steps=5),
     # the map → shuffle → reduce pipeline: (stage trace, tasks), c gang blocks
     # each; the event oracle's grid is benchmarks/bench_dag.py's
     dag=dict(stages=(("map", 1026), ("shuffle", 488), ("reduce", 485)), c=4,
@@ -300,21 +335,22 @@ def _close(torch, got, want, rtol, atol, what) -> float:
 
 
 def flash_kernel_cases(torch, device, sizes, g, flush) -> list:
-    """flash_attention against its plain version: the serve shape (first,
-    timed, with the bound and scaled_dot_product_attention's time), then
-    `sizes["flash_cases"]` (FLASH_CASES and FLASH_BF16_CASES at full size)."""
+    """flash_attention against its plain version: the serve shapes (first,
+    causal bf16, timed, with the bound and scaled_dot_product_attention's
+    time), then `sizes["flash_cases"]` (FLASH_CASES and FLASH_BF16_CASES at
+    full size)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    B, S, H, D = sizes["flash_shape"]
+    timed = [(*shape, True, "bfloat16") for shape in sizes["flash_shapes"]]
     cases = []
-    for i, (b, s, h, d, causal, dt) in enumerate(((B, S, H, D, True, "bfloat16"), *sizes["flash_cases"])):
+    for i, (b, s, h, d, causal, dt) in enumerate((*timed, *sizes["flash_cases"])):
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((b, s, h, d), generator=g, device=device).to(dtype) for _ in range(3))
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         err = _close(torch, flash_attention(q, k, v, causal=causal), flash_attention_plain(q, k, v, causal=causal),
                      tol, tol, f"flash_attention {(b, s, h, d, causal, dt)}")
         case = dict(shape=[b, s, h, d], causal=causal, dtype=dt, max_abs_err=err)
-        if i == 0:
+        if i < len(timed):
             elt = q.element_size()
             pairs = s * (s + 1) // 2 if causal else s * s
             case.update(
@@ -846,9 +882,9 @@ def phase_dag_profile(torch, device, sizes) -> None:
         m_trials=d["m_trials"], seed=0, fault=[FaultSpec(q=0.0), FaultSpec(q=0.05)], device=device)))
 
 
-def profile_serving(torch, model, params, tokens, steps: int) -> None:
+def profile_serving(torch, model, params, tokens, steps: int, phase: str = "serve_profile") -> None:
     """One request's prefill, then `steps` decode steps, each under
-    torch.profiler (phase `serve_profile`)."""
+    torch.profiler (phase `phase`)."""
     S = tokens.shape[1]
     state = {}
 
@@ -862,8 +898,28 @@ def profile_serving(torch, model, params, tokens, steps: int) -> None:
             logits, state["cache"] = model.decode_step(params, state["cache"], state["tok"], S + i)
             state["tok"] = torch.argmax(logits, dim=-1).to(torch.int32)
 
-    emit("serve_profile", prefill=profiled(torch, prefill, 16), decode_steps=steps,
+    emit(phase, arch=model.config.arch_id, prefill=profiled(torch, prefill, 16), decode_steps=steps,
          decode=profiled(torch, decode, 16))
+
+
+def phase_serve_moe_profile(torch, device, sizes) -> None:
+    """phase `serve_moe`'s model (the same config, seed and first request)
+    loaded again, then one prefill and 4 decode steps under torch.profiler,
+    once warm (phase `serve_moe_profile`)."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.lm import build_model
+
+    sv = sizes["serve_moe"]
+    cfg = get_reduced(sv["arch"]) if sv["reduced"] else get_config(sv["arch"])
+    model = build_model(cfg)
+    params = model.init(seed=0, device=device)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, size=sv["prompt"])  # launch.serve's first request
+    tokens = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None, :]
+    with uncounted():
+        model.prefill(params, {"tokens": tokens})  # warm
+        profile_serving(torch, model, params, tokens, steps=4, phase="serve_moe_profile")
+    del model, params
+    free_device(torch, device)
 
 
 @contextlib.contextmanager
@@ -912,11 +968,24 @@ def _rel_err(torch, got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def prefill_checks(torch, model, params, tokens) -> dict:
+def cast_params(params, dtype):
+    """A copy of a parameter tree (dicts and lists of dicts: `top`,
+    `layers`, `shared_attn`, `enc_layers`, `extra`) with every tensor in
+    `dtype`."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_params(v, dtype) for v in params]
+    return params.to(dtype)
+
+
+def prefill_checks(torch, model, params, tokens, decode_model=None) -> dict:
     """One request's prefill with the kernels against the same prefill with
     their plain versions; prefill(S - 1) + decode_step against prefill(S)
-    at the last position; and, for scale, the plain prefill against itself
-    with the embedding table times (1 + eps·u), u ~ N(0, 1), eps the
+    at the last position, both on `decode_model` (default `model`; a MoE's
+    drop-free twin, since a capacity drop of the last token is a legitimate
+    difference between the two); and, for scale, the plain prefill against
+    itself with the embedding table times (1 + eps·u), u ~ N(0, 1), eps the
     dtype's machine epsilon: max|Δ| / max|ref| each."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -932,17 +1001,39 @@ def prefill_checks(torch, model, params, tokens) -> dict:
         logits_p, _ = model.prefill(params, {"tokens": tokens})
         logits_n, _ = model.prefill(nudged, {"tokens": tokens})
     del nudged
-    _, cache = model.prefill(params, {"tokens": tokens[:, :-1]})
-    logits_d, _ = model.decode_step(params, model.grow_cache(cache, S), tokens[:, -1], S - 1)
+    dm = decode_model or model
+    logits_full = logits_k if dm is model else dm.prefill(params, {"tokens": tokens})[0]
+    _, cache = dm.prefill(params, {"tokens": tokens[:, :-1]})
+    logits_d, _ = dm.decode_step(params, dm.grow_cache(cache, S), tokens[:, -1], S - 1)
     return dict(kernels_vs_plain=_rel_err(torch, logits_k, logits_p),
-                decode_vs_prefill=_rel_err(torch, logits_d, logits_k),
+                decode_vs_prefill=_rel_err(torch, logits_d, logits_full),
                 plain_vs_plain_eps_embed=_rel_err(torch, logits_n, logits_p))
+
+
+def serve_argv(sv: dict, device) -> list:
+    """`launch/serve.py`'s command line for a `sizes` entry, seed 0."""
+    return ["--arch", sv["arch"], "--requests", str(sv["requests"]), "--batches", str(sv["batches"]),
+            "--prompt", str(sv["prompt"]), "--steps", str(sv["steps"]), "--seed", "0",
+            "--device", str(device)] + (["--reduced"] if sv["reduced"] else [])
+
+
+def free_device(torch, device) -> None:
+    """Return the freed models' memory to the card before the next one loads."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def phase_serve(torch, device, sizes) -> dict:
     """`repro_torch.launch.serve` as a user runs it, with the counters of
     its kernels set to 0 just before and read just after; then checks on
-    one request's prefill.
+    one request's prefill.  It serves the hybrid (Zamba2-1.2B), whose
+    model phase `fleet_serve` reuses, after phases `serve_moe` (the moe
+    family at full width and depth) and `configs` (the other new configs:
+    dense, MLA + MoE, encdec, vlm) have each freed their models.
 
     Prefill then decode is held to 0.05 in bfloat16, as served, and in
     float32 on the same weights cast up exactly.  The prefill's logits
@@ -957,9 +1048,7 @@ def phase_serve(torch, device, sizes) -> dict:
     from repro_torch.models.lm import build_model
 
     sv = sizes["serve"]
-    argv = ["--arch", sv["arch"], "--requests", str(sv["requests"]), "--batches", str(sv["batches"]),
-            "--prompt", str(sv["prompt"]), "--steps", str(sv["steps"]), "--seed", "0",
-            "--device", str(device)] + (["--reduced"] if sv["reduced"] else [])
+    argv = serve_argv(sv, device)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -990,11 +1079,7 @@ def phase_serve(torch, device, sizes) -> dict:
         model.prefill(params, {"tokens": tokens})
     bf16 = prefill_checks(torch, model, params, tokens)
     cfg32 = cfg.replace(param_dtype=torch.float32)
-    params32 = {
-        "top": {k: v.float() for k, v in params["top"].items()},
-        "layers": [{k: v.float() for k, v in lp.items()} for lp in params["layers"]],
-        **({"shared_attn": {k: v.float() for k, v in params["shared_attn"].items()}} if "shared_attn" in params else {}),
-    }
+    params32 = cast_params(params, torch.float32)
     f32 = prefill_checks(torch, build_model(cfg32), params32, tokens)
     del params32
     check(f32["kernels_vs_plain"] < 2e-2, f"float32 prefill logits, kernels vs plain: {f32['kernels_vs_plain']:.3g} < 2e-2")
@@ -1015,6 +1100,234 @@ def phase_serve(torch, device, sizes) -> dict:
          final_policy=res.stats[-1].policy, controller_policy=res.server.controller.current_policy().label(),
          kernel_calls_vs_plain_max_abs_err=errors, bfloat16=bf16, float32=f32)
     return launches, res
+
+
+@contextlib.contextmanager
+def counted_drops(torch, device):
+    """Counts, on the device, the MoE assignments the gather route keeps
+    (`kept`) out of all it slots (`assignments`) while the block runs."""
+    from repro_torch.models import moe
+
+    saved = moe._slots
+    acc = {"kept": torch.zeros((), dtype=torch.int64, device=device), "assignments": 0}
+
+    def slots(ids_f, n_experts, cap):
+        pos, keep = saved(ids_f, n_experts, cap)
+        acc["kept"] += keep.sum()
+        acc["assignments"] += keep.numel()
+        return pos, keep
+
+    moe._slots = slots
+    try:
+        yield acc
+    finally:
+        moe._slots = saved
+
+
+def moe_bounds(cfg, params, S: int, cap: int) -> dict:
+    """The least time the card could take for one prefill of S tokens and
+    for one decode token at context S, of a MoE model without MLA: the
+    larger of its bytes over the HBM rate and its bf16 products over the
+    tensor-core peak.  Bytes: every weight read once (of the embedding
+    table only the rows gathered), the KV cache written (prefill) or read
+    (decode) once.  Operations: the products the code runs, the experts
+    over every slot of the (E, C, d) buffer (C = `cap` at prefill; decode's
+    C = 1 runs all E experts) and the unembedding over every position."""
+    from repro_torch.models.lm import param_leaves
+
+    m, emb = cfg.moe, params["top"]["embed"]
+    elt = emb.element_size()
+    d, L, V, H, D = cfg.d_model, cfg.n_layers, cfg.padded_vocab, cfg.n_heads, cfg.resolved_head_dim
+    HD, KVD = H * D, cfg.n_kv_heads * D
+    weights = sum(t.numel() * t.element_size() for t in param_leaves(params)) - emb.numel() * elt
+    cache = L * 2 * S * KVD * elt
+
+    def ops(T, ctx_pairs, slots):
+        per_layer = (2 * T * d * (2 * HD + 2 * KVD) + 4 * H * D * ctx_pairs + 2 * T * d * m.n_experts
+                     + 6 * m.n_experts * slots * d * m.d_ff + 6 * T * d * m.n_shared * m.d_ff)
+        return L * per_layer + 2 * T * d * V
+
+    prefill_ops = ops(S, S * (S + 1) // 2, cap)
+    pre = bound(weights + S * d * elt + cache, prefill_ops, BF16_OPS_PER_S)
+    dec = bound(weights + d * elt + cache, ops(1, S, 1), BF16_OPS_PER_S)
+    return dict(weight_bytes_read=weights, prefill_flop=prefill_ops, prefill_bound_ms=pre[0],
+                prefill_bound_by=pre[1], decode_bound_ms_per_token=dec[0], decode_bound_by=dec[1])
+
+
+def phase_serve_moe(torch, device, sizes) -> None:
+    """`repro_torch.launch.serve` as a user runs it on moonshot-v1-16b-a3b
+    (bf16, seed-0 weights, at its full width and depth on the card), with
+    the kernels' counters set to 0 just before and read just after; then,
+    under `uncounted`, every flash call of one bf16 prefill against its
+    plain version, the share of routed assignments the published capacity
+    factor (1.25) drops over every distinct request's prefill, and the
+    float32 checks on the first `f32_layers` layers at full width (the
+    float32 model does not fit on the card): the prefill with the kernels
+    against the plain versions (< 2e-2) and prefill(S - 1) + decode_step
+    against prefill(S) (< 0.05) at the drop-free capacity factor
+    (n_experts).  The bf16 numbers of both are reported: routing is
+    discontinuous, and in bf16 a changed rounding can move a token to
+    another expert."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import build_model
+
+    sv = sizes["serve_moe"]
+    cuda = device.type == "cuda"
+    ops.flash_attention.launches = 0
+    ops.ssd_scan.launches = 0
+    res, wall, peak = _timed_call(torch, device, lambda: serve.run(
+        serve.parse_args(serve_argv(sv, device)), log=lambda line: emit("serve_moe_log", line=line)))
+    launches = {"flash_attention": ops.flash_attention.launches, "ssd_scan": ops.ssd_scan.launches}
+    prefill_ms = [t * 1e3 for t in res.prefill_s]
+    decode_ms_tok = [t * 1e3 / (sv["steps"] - 1) for t in res.decode_s]
+
+    model, params, cfg = res.model, res.params, res.model.config
+    served, steps = sv["requests"] * sv["batches"], sv["steps"]
+    check(cfg.moe is not None and cfg.mla is None, f"{cfg.arch_id} is a MoE model without MLA")
+    check(all(len(o) == steps for outs in res.outputs for o in outs), f"every request returned {steps} tokens")
+    check(len(res.prefill_s) == served, f"{served} requests served")
+    check(res.logits_finite, "every logit finite")
+    if cuda:
+        want = {"flash_attention": cfg.n_layers * served, "ssd_scan": 0}
+        check(launches == want, f"kernel launches on the MoE serve path {launches} == {want}")
+
+    tokens = [torch.as_tensor(r, dtype=torch.int32, device=device)[None, :] for r in res.requests]
+    S = tokens[0].shape[1]
+    errors: dict = {}
+    free_moe = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts))
+    L = min(sv["f32_layers"], cfg.n_layers)
+    cut = cfg.replace(n_layers=L, param_dtype=torch.float32)
+    with uncounted():
+        with counted_drops(torch, device) as drops:
+            with routed_kernels(*checked_kernels(torch, errors)):
+                model.prefill(params, {"tokens": tokens[0]})
+            for t in tokens[1:]:
+                model.prefill(params, {"tokens": t})
+        dropped = 1.0 - int(drops["kept"]) / drops["assignments"]
+        bf16 = prefill_checks(torch, model, params, tokens[0], decode_model=build_model(cfg.replace(moe=free_moe)))
+        cap = moe_mod.capacity(cfg.moe, S, S)
+        bounds = moe_bounds(cfg, params, S, cap)
+        # the bf16 model leaves the card before its float32 cut is checked
+        params32 = cast_params({"top": params["top"], "layers": params["layers"][:L]}, torch.float32)
+        stats, final_policy = res.stats, res.stats[-1].policy
+        del res, model, params
+        free_device(torch, device)
+        left = torch.cuda.memory_allocated() if cuda else None
+        f32 = prefill_checks(torch, build_model(cut), params32, tokens[0],
+                             decode_model=build_model(cut.replace(moe=free_moe)))
+        del params32
+    if cuda:
+        check("flash_attention" in errors, "the bf16 prefill's flash calls were checked")
+    check(f32["kernels_vs_plain"] < 2e-2,
+          f"float32 prefill logits ({L} layers), kernels vs plain: {f32['kernels_vs_plain']:.3g} < 2e-2")
+    check(f32["decode_vs_prefill"] < 0.05,
+          f"float32 prefill(S-1) + decode_step vs prefill(S) ({L} layers, drop-free): "
+          f"{f32['decode_vs_prefill']:.3g} < 0.05")
+
+    emit("serve_moe", arch=cfg.arch_id, params=cfg.param_count(), active_params=cfg.active_param_count(),
+         n_layers=cfg.n_layers, dtype=str(cfg.param_dtype), requests=served, prompt=sv["prompt"], steps=steps,
+         wall_s=wall, prefill_ms=dict(first=prefill_ms[0], median=float(np.median(prefill_ms[1:] or prefill_ms))),
+         decode_ms_per_token=dict(first=decode_ms_tok[0],
+                                  median=float(np.median(decode_ms_tok[1:] or decode_ms_tok))),
+         peak_bytes=peak, launches=launches, capacity_factor=cfg.moe.capacity_factor, capacity=cap,
+         dropped_share=dropped, dropped_over_prefills=len(tokens), bounds=bounds,
+         kernel_calls_vs_plain_max_abs_err=errors, bfloat16=bf16,
+         float32=dict(f32, n_layers=L, reduced=f"n_layers {cfg.n_layers} -> {L}", bytes_on_card_before=left),
+         decode_vs_prefill_capacity_factor=free_moe.capacity_factor,
+         batches=[dataclasses.asdict(st) for st in stats], final_policy=final_policy)
+    free_device(torch, device)
+
+
+def mla_decode_check(torch, model, params, prompt, device) -> dict:
+    """An MLA model's decode_step on the naive route against the absorbed
+    one, on one cache from prefill(S - 1): max|Δ| / max|ref| of the
+    logits, in bf16 (reported) and in float32 (held to 1e-3: the two
+    differ there by the order of their products)."""
+    from repro_torch.models.lm import build_model
+
+    tokens = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None, :]
+    S = tokens.shape[1]
+
+    def absorbed_vs_naive(cfg, p):
+        m = build_model(cfg)
+        _, cache = m.prefill(p, {"tokens": tokens[:, :-1]})
+        cache = m.grow_cache(cache, S)
+        out = {impl: build_model(cfg.replace(mla_decode_impl=impl)).decode_step(p, cache, tokens[:, -1], S - 1)[0]
+               for impl in ("naive", "absorbed")}
+        return _rel_err(torch, out["absorbed"], out["naive"])
+
+    cfg = model.config
+    with uncounted():
+        bf16 = absorbed_vs_naive(cfg, params)
+        p32 = cast_params(params, torch.float32)
+        f32 = absorbed_vs_naive(cfg.replace(param_dtype=torch.float32), p32)
+        del p32
+    check(f32 < 1e-3, f"{cfg.arch_id} float32 decode, absorbed vs naive: {f32:.3g} < 1e-3")
+    return dict(absorbed_vs_naive_float32=f32, absorbed_vs_naive_bfloat16=bf16)
+
+
+def serve_config(torch, device, cfg, cf: dict) -> dict:
+    """One config served through `launch.serve.RequestFn` (seed-0 bf16
+    weights, prompts and vision / encoder inputs from one seed-0 numpy
+    generator): two requests on the counted path, then one with every flash
+    call held against its plain version (uncounted)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import RequestFn
+    from repro_torch.models.lm import build_model
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=cf["prompt"]) for _ in range(2)]
+    serve_fn = RequestFn(model, params, cf["prompt"], cf["steps"], device, rng)
+    before = ops.flash_attention.launches
+    outs = [serve_fn(p) for p in prompts]
+    launches = ops.flash_attention.launches - before
+    want = 0 if cfg.mla is not None else cfg.n_layers * len(prompts)
+    if cuda:
+        check(launches == want, f"{cfg.arch_id}: flash launches {launches} == {want}")
+    check(all(o.shape == (cf["steps"],) for o in outs), f"{cfg.arch_id}: {cf['steps']} tokens a request")
+    errors: dict = {}
+    with uncounted(), routed_kernels(*checked_kernels(torch, errors)):
+        serve_fn(prompts[0])
+    check(serve_fn.logits_finite, f"{cfg.arch_id}: every logit finite")
+    if cuda:
+        check(("flash_attention" in errors) == (want > 0), f"{cfg.arch_id}: every flash call checked")
+    row = dict(arch=cfg.arch_id, family=cfg.family, params=cfg.param_count(), n_layers=cfg.n_layers,
+               dtype=str(cfg.param_dtype), init_s=init_s, prompt=cf["prompt"], decode_steps=cf["steps"] - 1,
+               prefill_ms=[t * 1e3 for t in serve_fn.prefill_s[:2]],
+               decode_ms_per_token=[t * 1e3 / (cf["steps"] - 1) for t in serve_fn.decode_s[:2]],
+               flash_launches=launches, kernel_calls_vs_plain_max_abs_err=errors,
+               peak_bytes=torch.cuda.max_memory_allocated() if cuda else None)
+    if cfg.mla is not None:
+        row["mla_decode"] = mla_decode_check(torch, model, params, prompts[0], device)
+    return row
+
+
+def phase_configs(torch, device, sizes) -> None:
+    """Each of `sizes["configs"]["archs"]` served at its published widths
+    (`serve_config`), one model on the card at a time; depth cuts are
+    named in the phase's `reduced` field."""
+    from repro_torch.configs import get_config, get_reduced
+
+    cf = sizes["configs"]
+    reduced = {}
+    for arch in cf["archs"]:
+        cfg = get_reduced(arch) if cf["reduced"] else get_config(arch)
+        if arch in cf["layers"]:
+            reduced[arch] = f"n_layers {cfg.n_layers} -> {cf['layers'][arch]}"
+            cfg = cfg.replace(n_layers=cf["layers"][arch])
+        emit("configs", **serve_config(torch, device, cfg, cf), reduced=reduced.get(arch))
+        free_device(torch, device)
 
 
 @contextlib.contextmanager
@@ -1248,6 +1561,12 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     kw_queue.launches = 0
     phase_dag(torch, device, sizes)
     paths["dag"] = {"kw_queue": kw_queue.launches}
+    ops.flash_attention.launches = 0
+    phase_serve_moe(torch, device, sizes)
+    paths["serve_moe"] = {"flash_attention": ops.flash_attention.launches}
+    ops.flash_attention.launches = 0
+    phase_configs(torch, device, sizes)
+    paths["configs"] = {"flash_attention": ops.flash_attention.launches}
     paths["serve"], served = phase_serve(torch, device, sizes)
     kw_queue.launches = 0
     first_replan = phase_fleet_adaptive(torch, device, sizes)
@@ -1264,6 +1583,9 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
         tokens = torch.as_tensor(served.requests[0], dtype=torch.int32, device=device)[None, :]
         profile_serving(torch, served.model, served.params, tokens, steps=8)
     del served
+    if profile:
+        free_device(torch, device)
+        phase_serve_moe_profile(torch, device, sizes)
     launches: dict = {}
     for path, counts in paths.items():
         for name, count in counts.items():

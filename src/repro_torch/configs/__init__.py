@@ -1,13 +1,10 @@
-"""Architecture registry of the port: the configurations whose families are
-ported, and their reduced smoke variants.
+"""Architecture registry of the port: the reference's ten configurations and
+their reduced smoke variants.
 
 `get_config(arch_id)`  -> the published configuration.
 `get_reduced(arch_id)` -> the same family and topology, shrunk for CPU
                           tests exactly as `repro.configs.get_reduced`
-                          shrinks it.
-
-The reference's other architectures (moe, mla, encdec, vlm, and the dense
-configs not listed here) raise `KeyError` naming their ROADMAP item.
+                          shrinks it (2-5 layers, narrow widths, tiny vocab).
 """
 
 from __future__ import annotations
@@ -15,27 +12,39 @@ from __future__ import annotations
 import dataclasses
 
 from ..models.lm import ModelConfig
-from . import mamba2_2_7b, qwen2_0_5b, zamba2_1_2b
+from . import (
+    deepseek_v2_236b,
+    gemma_2b,
+    llava_next_34b,
+    mamba2_2_7b,
+    moonshot_v1_16b_a3b,
+    qwen2_0_5b,
+    qwen3_32b,
+    stablelm_3b,
+    whisper_small,
+    zamba2_1_2b,
+)
 
 ARCHS: dict[str, ModelConfig] = {
-    c.CONFIG.arch_id: c.CONFIG for c in (qwen2_0_5b, zamba2_1_2b, mamba2_2_7b)
+    c.CONFIG.arch_id: c.CONFIG
+    for c in (
+        deepseek_v2_236b,
+        moonshot_v1_16b_a3b,
+        llava_next_34b,
+        qwen3_32b,
+        gemma_2b,
+        qwen2_0_5b,
+        stablelm_3b,
+        zamba2_1_2b,
+        whisper_small,
+        mamba2_2_7b,
+    )
 }
 
 ARCH_IDS = tuple(ARCHS)
 
-#: the reference's architectures the port does not carry yet
-NOT_PORTED = (
-    "deepseek-v2-236b", "moonshot-v1-16b-a3b", "llava-next-34b", "qwen3-32b",
-    "gemma-2b", "stablelm-3b", "whisper-small",
-)
-
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in NOT_PORTED:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 7: the other "
-            f"configs); available: {sorted(ARCHS)}"
-        )
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(ARCHS)}")
     return ARCHS[arch_id]
@@ -43,7 +52,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_reduced(arch_id: str) -> ModelConfig:
     """Family-faithful reduced config for CPU tests (the reference's
-    reductions for the dense, ssm and hybrid families)."""
+    reductions)."""
     cfg = get_config(arch_id)
     kw: dict = dict(
         n_layers=2,
@@ -54,6 +63,18 @@ def get_reduced(arch_id: str) -> ModelConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab=256,
     )
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, d_model=64, n_heads=4, q_lora=32, kv_lora=16, d_nope=16, d_rope=8, d_v=16
+        )
+        kw["n_kv_heads"] = 4
+    if cfg.moe is not None:
+        # capacity_factor high enough that nothing drops at smoke scale, so
+        # gather and dense dispatch agree exactly
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, d_model=64, d_ff=32, n_experts=8, top_k=2,
+            n_shared=min(cfg.moe.n_shared, 1), capacity_factor=16.0,
+        )
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_model=64, d_state=16, head_dim=16, chunk=16)
         kw["n_heads"] = 8  # d_inner(128) / head_dim(16)
@@ -64,4 +85,9 @@ def get_reduced(arch_id: str) -> ModelConfig:
         kw["attn_every"] = 2
         kw["n_heads"] = 4
         kw["n_kv_heads"] = 2
+    if cfg.family == "encdec":
+        kw["n_enc_layers"] = 2
+        kw["enc_positions"] = 24
+    if cfg.family == "vlm":
+        kw["vision_patches"] = 8
     return cfg.replace(**kw)

@@ -83,13 +83,16 @@ def impl_from_reference(name: str) -> str:
 
 def model_params_from_reference(params, cfg, device) -> dict:
     """The port's parameters from the reference's parameter tree, its
-    leaves given as numpy arrays: `top` and `shared_attn` key for key, and
-    the stacked (L, ...) arrays of `layers` as one dict per layer.  Each
-    tensor takes the dtype the port's own init gives it (`cfg.param_dtype`,
-    float32 for the SSM's A_log, dt_bias and D)."""
+    leaves given as numpy arrays: `top`, `shared_attn` and `extra` key for
+    key, and the stacked (L, ...) arrays of `layers` and `enc_layers` as
+    one dict per layer.  Each tensor takes the dtype the port's own init
+    gives it (`cfg.param_dtype`; float32 for the SSM's A_log, dt_bias and D
+    and the MoE router)."""
     from .models.lm import build_model
 
     like = build_model(cfg).init(device="meta")
+    if set(params) != set(like):
+        raise ValueError(f"sub-trees {sorted(params)} are not {sorted(like)}")
 
     def carry(arrays, shapes, where):
         if set(arrays) != set(shapes):
@@ -102,14 +105,16 @@ def model_params_from_reference(params, cfg, device) -> dict:
             out[k] = t.to(device=device, dtype=want.dtype)
         return out
 
-    out = {"top": carry(params["top"], like["top"], "top")}
-    n_layers = len(like["layers"])
-    out["layers"] = [
-        carry({k: v[i] for k, v in params["layers"].items()}, like["layers"][i], f"layers[{i}]")
-        for i in range(n_layers)
-    ]
-    if any(np.shape(v)[0] != n_layers for v in params["layers"].values()):
-        raise ValueError(f"layers: every stacked array must lead with {n_layers} layers")
-    if "shared_attn" in like:
-        out["shared_attn"] = carry(params["shared_attn"], like["shared_attn"], "shared_attn")
+    out = {}
+    for name, shapes in like.items():
+        if isinstance(shapes, dict):
+            out[name] = carry(params[name], shapes, name)
+            continue
+        n_layers = len(shapes)
+        if any(np.shape(v)[0] != n_layers for v in params[name].values()):
+            raise ValueError(f"{name}: every stacked array must lead with {n_layers} layers")
+        out[name] = [
+            carry({k: v[i] for k, v in params[name].items()}, shapes[i], f"{name}[{i}]")
+            for i in range(n_layers)
+        ]
     return out

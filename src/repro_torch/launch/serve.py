@@ -1,16 +1,20 @@
 """Serving entry point: hedged batched decoding with online policy adaptation.
 
     python -m repro_torch.launch.serve                       # full Zamba2-1.2B on the card
-    python -m repro_torch.launch.serve --reduced --device cpu
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b
+    python -m repro_torch.launch.serve --arch whisper-small --reduced --device cpu
 
 Counterpart of `repro.launch.serve`.  Each request is a prefill of its
 prompt plus greedy decoding of a `models.lm` model with seeded random
 weights; the requests of a batch run under `HedgedServer`, whose simulated
 cluster times them and whose controller re-plans the hedging policy
-(p, r, keep|kill) through Algorithm 1.  `--arch` defaults to zamba2-1.2b
-at its full published width on the card, where prefill runs the CUDA
-flash-attention and SSD-scan kernels; `--reduced` takes the reference's
-reduced config.  The loop runs eagerly.
+(p, r, keep|kill) through Algorithm 1.  `--arch` takes any of the ten
+configs and defaults to zamba2-1.2b, at its full published width on the
+card, where prefill runs the CUDA flash-attention (and, for the ssm and
+hybrid families, SSD-scan) kernels; `--reduced` takes the reference's
+reduced config.  A vlm request carries vision patch embeddings and an
+encdec request encoder frame embeddings, drawn per request from the run's
+numpy generator as the reference draws them.  The loop runs eagerly.
 """
 
 from __future__ import annotations
@@ -62,16 +66,26 @@ class ServeRun:
 class RequestFn:
     """The function that serves one request on `model` with `params`: the
     prefill of a `prompt`-token prompt, then greedy decoding to `steps`
-    new tokens; returns the (steps,) tokens as numpy.  It keeps, per
-    request served, the prefill's wall seconds (`prefill_s`) and those of
-    its decode steps (`decode_s`), and counts non-finite logits on the
-    device (`logits_finite`).  `HedgedServer` and `FleetHedgedServer` take
-    it as their `serve_fn`."""
+    new tokens; returns the (steps,) tokens as numpy.  A vlm model's
+    request also carries (1, vision_patches, d_model) patch embeddings and
+    an encdec model's (1, enc_positions, d_model) frame embeddings, drawn
+    at each call from `rng` (standard normal, rounded to bfloat16, as the
+    reference's `extras()` draws them); the vlm's decode positions count
+    the patches first.  It keeps, per request served, the prefill's wall
+    seconds (`prefill_s`) and those of its decode steps (`decode_s`), and
+    counts non-finite logits on the device (`logits_finite`).
+    `HedgedServer` and `FleetHedgedServer` take it as their `serve_fn`."""
 
-    def __init__(self, model, params, prompt: int, steps: int, device):
+    def __init__(self, model, params, prompt: int, steps: int, device, rng=None):
+        cfg = model.config
+        if rng is None and cfg.family in ("vlm", "encdec"):
+            raise ValueError(f"the {cfg.family} family's requests draw their inputs from rng")
         self.model, self.params = model, params
         self.prompt, self.steps = prompt, steps
         self.device = torch.device(device)
+        self.rng = rng
+        # decode positions start after the prompt (and a vlm's patches)
+        self.offset = prompt + (cfg.vision_patches if cfg.family == "vlm" else 0)
         self.prefill_s: list = []
         self.decode_s: list = []
         self._nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)  # summed on the device
@@ -84,19 +98,30 @@ class RequestFn:
     def logits_finite(self) -> bool:
         return int(self._nonfinite) == 0
 
+    def extras(self) -> dict:
+        """The request's vision or encoder inputs, drawn from `rng`."""
+        cfg = self.model.config
+        shape = {"vlm": ("vision_embeds", cfg.vision_patches), "encdec": ("enc_embeds", cfg.enc_positions)}
+        if cfg.family not in shape:
+            return {}
+        key, n = shape[cfg.family]
+        draw = torch.from_numpy(self.rng.standard_normal((1, n, cfg.d_model)))
+        return {key: draw.to(torch.bfloat16).to(self.device)}
+
     def __call__(self, prompt_tokens) -> np.ndarray:
         model, params = self.model, self.params
         tokens = torch.as_tensor(prompt_tokens, dtype=torch.int32, device=self.device)[None, :]
+        batch = {"tokens": tokens, **self.extras()}
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens})
+        logits, cache = model.prefill(params, batch)
         self._nonfinite.add_((~torch.isfinite(logits)).sum())
-        cache = model.grow_cache(cache, self.prompt + self.steps)
+        cache = model.grow_cache(cache, self.offset + self.steps)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         self._sync()
         t1 = time.perf_counter()
         out = [tok]
         for i in range(self.steps - 1):
-            logits, cache = model.decode_step(params, cache, tok, self.prompt + i)
+            logits, cache = model.decode_step(params, cache, tok, self.offset + i)
             self._nonfinite.add_((~torch.isfinite(logits)).sum())
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(tok)
@@ -111,7 +136,11 @@ def run(args: argparse.Namespace, log=print) -> ServeRun:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg)
     params = model.init(seed=args.seed, device=dev)
-    serve_request = RequestFn(model, params, args.prompt, args.steps, dev)
+    # the prompts first, then each request's vision or encoder inputs as it
+    # is served, from one generator, as the reference draws them
+    rng = np.random.default_rng(args.seed)
+    requests = [rng.integers(0, cfg.vocab, size=args.prompt) for _ in range(args.requests)]
+    serve_request = RequestFn(model, params, args.prompt, args.steps, dev, rng)
 
     dist = Pareto(alpha=1.7, xm=0.040) if args.dist == "pareto" else ShiftedExp(0.04, 20.0)
     server = HedgedServer(
@@ -121,8 +150,6 @@ def run(args: argparse.Namespace, log=print) -> ServeRun:
         policy=SingleForkPolicy(0.05, 1, True),
         device=dev,
     )
-    rng = np.random.default_rng(args.seed)
-    requests = [rng.integers(0, cfg.vocab, size=args.prompt) for _ in range(args.requests)]
     width = "reduced" if args.reduced else "full"
     log(f"arch={cfg.arch_id} ({width}) on {dev}  {args.requests} req/batch x {args.batches} batches")
     log("batch  policy                          latency     p50     p99    cost")

@@ -7,6 +7,8 @@ Counterpart of `repro.models.attention`.  Paths share one parameterization:
     flash_attention`; its plain version on the CPU) and is the port's
     counterpart of the reference's impl="pallas"; impl="chunked" is the
     online-softmax loop over KV blocks; impl="ref" materializes the scores.
+  * `attend_cross`  — queries against (k, v) that `encode_kv` computed once
+    from the encoder's states (the encdec family); "ref" or "chunked".
   * `attend_decode` — one query token against a KV cache.
 Softmax math in float32, with the reference's casts.
 """
@@ -157,6 +159,37 @@ def attend_full(params, spec: AttentionSpec, x, positions, impl: str = "kernel")
     B, S = x.shape[:2]
     out = out.reshape(B, S, spec.q_dim)
     return torch.matmul(out, params["attn/wo"]), (k, v)
+
+
+def attend_cross(params, spec: AttentionSpec, x, kv, impl: str = "ref"):
+    """Cross attention: queries from x, (k, v) precomputed from the encoder."""
+    B, S, _ = x.shape
+    q = torch.matmul(x, params["attn/wq"])
+    if spec.qkv_bias:
+        q = q + params["attn/bq"]
+    q = q.reshape(B, S, spec.n_heads, spec.head_dim)
+    k, v = kv
+    n_rep = spec.n_heads // spec.n_kv_heads
+    ke, ve = _expand_kv(k, n_rep), _expand_kv(v, n_rep)
+    if impl == "chunked":
+        out = _sdpa_chunked(q, ke, ve, causal=False)
+    else:
+        out = _sdpa_ref(q, ke, ve, causal=False)
+    return torch.matmul(out.reshape(B, S, spec.q_dim), params["attn/wo"])
+
+
+def encode_kv(params, spec: AttentionSpec, x_enc):
+    """Cross-attention (k, v) from the encoder's states, computed once."""
+    B, S, _ = x_enc.shape
+    k = torch.matmul(x_enc, params["attn/wk"])
+    v = torch.matmul(x_enc, params["attn/wv"])
+    if spec.qkv_bias:
+        k = k + params["attn/bk"]
+        v = v + params["attn/bv"]
+    return (
+        k.reshape(B, S, spec.n_kv_heads, spec.head_dim),
+        v.reshape(B, S, spec.n_kv_heads, spec.head_dim),
+    )
 
 
 def attend_decode(params, spec: AttentionSpec, x, cache_k, cache_v, position: int):

@@ -1,25 +1,29 @@
-"""Model assembly: decoder-only LMs of the dense, ssm and hybrid families,
-in PyTorch.
+"""Model assembly: decoder-only LMs (dense / MoE / MLA / SSM / hybrid),
+encoder-decoder (Whisper) and VLM (LLaVA backbone with a stub frontend), in
+PyTorch.
 
 Counterpart of `repro.models.lm`.  One `ModelConfig` describes an
 architecture; `build_model` returns a `Model` with
 
     init(seed, device)                -> params
-    forward(params, tokens)           -> (logits, cache, aux)
+    forward(params, tokens, vision_embeds=None, enc_embeds=None)
+                                      -> (logits, cache, aux)
     prefill(params, batch)            -> (last logits, cache)
     decode_step(params, cache, tokens, position) -> (logits, cache)
     grow_cache(cache, target_len)     -> cache with room for target_len
     generate(params, batch, steps)    -> greedy tokens
 
 Parameters are plain dicts of tensors keyed by the reference's paths:
-`params["top"]` (embed, unembed, final_norm/w), `params["layers"]` (one
-dict per layer, where the reference stacks them along a leading axis and
-scans) and, for the hybrid, `params["shared_attn"]`.  The reference's
-`lax.scan` over layers is a Python loop.  `attn_impl` and `ssm_impl`
-default to "kernel", the hand-written CUDA kernels (the reference's
-"pallas"); "chunked" / "ref" and "jnp" keep its other routes.  The moe,
-mla, encdec and vlm families are not ported yet (ROADMAP Queue 1 item 7)
-and raise `NotImplementedError`.
+`params["top"]` (embed, unembed, final_norm), `params["layers"]` (one dict
+per layer, where the reference stacks them along a leading axis and
+scans), `params["shared_attn"]` for the hybrid, and `params["enc_layers"]`
+(one dict per encoder layer) and `params["extra"]` (enc_pos, dec_pos,
+enc_final_norm) for the encdec family.  The reference's `lax.scan` over
+layers is a Python loop.  `attn_impl` and `ssm_impl` default to "kernel",
+the hand-written CUDA kernels (the reference's "pallas"); "chunked" / "ref"
+and "jnp" keep its other routes.  As in the reference, MLA prefill runs
+the materialized scores for "kernel", the whisper encoder runs "ref"
+whatever `attn_impl` says, and cross attention runs "ref".
 """
 
 from __future__ import annotations
@@ -33,18 +37,17 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import mla as mla_mod
 from . import mlp as mlp_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import Init, layer_norm, pad_vocab, rms_norm
-
-FAMILIES = ("dense", "ssm", "hybrid")
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 7: moe, mla, encdec, vlm)"
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str  # dense | ssm | hybrid (moe | encdec | vlm not ported yet)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,10 +63,17 @@ class ModelConfig:
     norm_offset: float = 0.0  # gemma's (1+w) RMSNorm
     act: str = "silu"
     gated_mlp: bool = True
-    embed_scale: bool = False
+    embed_scale: bool = False  # gemma: embeddings scaled by sqrt(d_model)
+    mla: Optional[mla_mod.MLASpec] = None
+    moe: Optional[moe_mod.MoESpec] = None
     ssm: Optional[ssm_mod.SSMSpec] = None
     attn_every: int = 0  # hybrid: one shared attention block every attn_every ssm layers
+    n_enc_layers: int = 0  # encdec (whisper)
+    enc_positions: int = 1500  # frame embeddings from the (stub) conv frontend
+    vision_patches: int = 0  # vlm: patch embeddings prepended to the text tokens
     attn_impl: str = "kernel"  # kernel | chunked | ref
+    moe_impl: str = "gather"  # gather | dense
+    mla_decode_impl: str = "naive"  # naive | absorbed
     ssm_impl: str = "kernel"  # kernel | jnp
     param_dtype: Any = torch.bfloat16
 
@@ -86,6 +96,7 @@ class ModelConfig:
             qk_norm=self.qk_norm,
             rope_theta=self.rope_theta,
             rope_fraction=self.rope_fraction,
+            use_rope=self.family != "encdec",
         )
 
     def replace(self, **kw) -> "ModelConfig":
@@ -94,10 +105,24 @@ class ModelConfig:
     def param_count(self) -> int:
         """Total parameter count, from an init on the meta device (no
         allocation)."""
-        params = build_model(self).init(device="meta")
-        leaves = list(params["top"].values()) + list(params.get("shared_attn", {}).values())
-        leaves += [t for layer in params["layers"] for t in layer.values()]
-        return sum(t.numel() for t in leaves)
+        return sum(t.numel() for t in param_leaves(build_model(self).init(device="meta")))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * m.d_ff * m.d_model
+        return total - (m.n_experts - m.top_k) * per_expert * self.n_layers
+
+
+def param_leaves(params) -> list:
+    """Every tensor of a parameter tree (dicts and lists of dicts)."""
+    if isinstance(params, torch.Tensor):
+        return [params]
+    values = params.values() if isinstance(params, dict) else params
+    return [t for v in values for t in param_leaves(v)]
 
 
 # ---------------------------------------------------------------------------
@@ -118,14 +143,30 @@ def _apply_norm(params, cfg: ModelConfig, x, name: str):
     return rms_norm(x, params[f"{name}/w"], offset=1.0 if cfg.norm_offset else 0.0)
 
 
-def _init_transformer_layer(init: Init, cfg: ModelConfig):
+def _init_transformer_layer(init: Init, cfg: ModelConfig, cross: bool = False):
     _init_norm(init, cfg, "ln_attn")
     attn_mod.init_attention(init, cfg.attn_spec)
+    if cross:
+        _init_norm(init, cfg, "ln_cross")
+        with init.scope("cross"):
+            attn_mod.init_attention(init, dataclasses.replace(cfg.attn_spec, causal=False))
     _init_norm(init, cfg, "ln_mlp")
-    if cfg.gated_mlp:
+    if cfg.moe is not None:
+        moe_mod.init_moe(init, cfg.moe)
+    elif cfg.gated_mlp:
         mlp_mod.init_gated_mlp(init, cfg.d_model, cfg.d_ff)
     else:
         mlp_mod.init_plain_mlp(init, cfg.d_model, cfg.d_ff)
+
+
+def _init_mla_layer(init: Init, cfg: ModelConfig):
+    _init_norm(init, cfg, "ln_attn")
+    mla_mod.init_mla(init, cfg.mla)
+    _init_norm(init, cfg, "ln_mlp")
+    if cfg.moe is not None:
+        moe_mod.init_moe(init, cfg.moe)
+    else:
+        mlp_mod.init_gated_mlp(init, cfg.d_model, cfg.d_ff)
 
 
 def _init_ssm_layer(init: Init, cfg: ModelConfig):
@@ -134,24 +175,38 @@ def _init_ssm_layer(init: Init, cfg: ModelConfig):
 
 
 def _ffn_apply(lp, cfg: ModelConfig, h):
+    """Returns (delta, aux)."""
+    if cfg.moe is not None:
+        return moe_mod.moe_ffn(lp, cfg.moe, h, impl=cfg.moe_impl)
     if cfg.gated_mlp:
-        return mlp_mod.gated_mlp(lp, h, act=cfg.act)
-    return mlp_mod.plain_mlp(lp, h, act=cfg.act)
+        return mlp_mod.gated_mlp(lp, h, act=cfg.act), 0.0
+    return mlp_mod.plain_mlp(lp, h, act=cfg.act), 0.0
 
 
 def _transformer_layer_full(lp, cfg: ModelConfig, h, positions):
-    a, kv = attn_mod.attend_full(
-        lp, cfg.attn_spec, _apply_norm(lp, cfg, h, "ln_attn"), positions, cfg.attn_impl
-    )
+    hn = _apply_norm(lp, cfg, h, "ln_attn")
+    if cfg.mla is not None:
+        a, kv = mla_mod.mla_full(lp, cfg.mla, hn, positions, cfg.attn_impl)
+    else:
+        a, kv = attn_mod.attend_full(lp, cfg.attn_spec, hn, positions, cfg.attn_impl)
     h = h + a
-    return h + _ffn_apply(lp, cfg, _apply_norm(lp, cfg, h, "ln_mlp")), kv
+    f, aux = _ffn_apply(lp, cfg, _apply_norm(lp, cfg, h, "ln_mlp"))
+    return h + f, kv, aux
 
 
 def _transformer_layer_decode(lp, cfg: ModelConfig, h, cache, position):
     hn = _apply_norm(lp, cfg, h, "ln_attn")
-    a, ck, cv = attn_mod.attend_decode(lp, cfg.attn_spec, hn, cache[0], cache[1], position)
+    if cfg.mla is not None:
+        a, c0, c1 = mla_mod.mla_decode(lp, cfg.mla, hn, cache[0], cache[1], position, cfg.mla_decode_impl)
+    else:
+        a, c0, c1 = attn_mod.attend_decode(lp, cfg.attn_spec, hn, cache[0], cache[1], position)
     h = h + a
-    return h + _ffn_apply(lp, cfg, _apply_norm(lp, cfg, h, "ln_mlp")), (ck, cv)
+    f, _ = _ffn_apply(lp, cfg, _apply_norm(lp, cfg, h, "ln_mlp"))
+    return h + f, (c0, c1)
+
+
+def _cross_params(lp) -> dict:
+    return {k[len("cross/"):]: v for k, v in lp.items() if k.startswith("cross/")}
 
 
 def _ssm_layer_full(lp, cfg: ModelConfig, h):
@@ -179,21 +234,38 @@ class Model:
         cfg = self.config
         dev = resolve_device(device)
         g = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(int(seed))
-        init = Init(g, dtype=cfg.param_dtype, device=dev)
-        init.param("embed", (cfg.padded_vocab, cfg.d_model), init="embed")
-        init.param("unembed", (cfg.d_model, cfg.padded_vocab))
-        _init_norm(init, cfg, "final_norm")
-        params = {"top": init.params}
-        layer_fn = _init_transformer_layer if cfg.family == "dense" else _init_ssm_layer
-        params["layers"] = []
-        for _ in range(cfg.n_layers):
+
+        def block(fn, *args, **kw) -> dict:
             init = Init(g, dtype=cfg.param_dtype, device=dev)
-            layer_fn(init, cfg)
-            params["layers"].append(init.params)
-        if cfg.family == "hybrid":
-            init = Init(g, dtype=cfg.param_dtype, device=dev)
-            _init_transformer_layer(init, cfg)
-            params["shared_attn"] = init.params
+            fn(init, *args, **kw)
+            return init.params
+
+        def top(init: Init):
+            init.param("embed", (cfg.padded_vocab, cfg.d_model), init="embed")
+            init.param("unembed", (cfg.d_model, cfg.padded_vocab))
+            _init_norm(init, cfg, "final_norm")
+
+        params = {"top": block(top)}
+        if cfg.family in ("dense", "moe", "vlm"):
+            layer_fn = _init_mla_layer if cfg.mla is not None else _init_transformer_layer
+            params["layers"] = [block(layer_fn, cfg) for _ in range(cfg.n_layers)]
+        elif cfg.family in ("ssm", "hybrid"):
+            params["layers"] = [block(_init_ssm_layer, cfg) for _ in range(cfg.n_layers)]
+            if cfg.family == "hybrid":
+                params["shared_attn"] = block(_init_transformer_layer, cfg.replace(moe=None))
+        elif cfg.family == "encdec":
+            plain = cfg.replace(moe=None)
+            params["enc_layers"] = [block(_init_transformer_layer, plain) for _ in range(cfg.n_enc_layers)]
+            params["layers"] = [block(_init_transformer_layer, plain, cross=True) for _ in range(cfg.n_layers)]
+
+            def extra(init: Init):
+                init.param("enc_pos", (cfg.enc_positions, cfg.d_model), init="embed")
+                init.param("dec_pos", (65536, cfg.d_model), init="embed")
+                _init_norm(init, cfg, "enc_final_norm")
+
+            params["extra"] = block(extra)
+        else:
+            raise ValueError(cfg.family)
         return params
 
     # ------------------------------------------------------------ embedding
@@ -209,26 +281,39 @@ class Model:
         return torch.matmul(h, params["top"]["unembed"])
 
     # -------------------------------------------------------------- forward
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, vision_embeds=None, enc_embeds=None):
         """Full-sequence forward -> (logits, cache, aux).  The cache layout
-        matches decode_step so prefill can hand off directly."""
+        matches decode_step so prefill can hand off directly.  The vlm
+        family prepends `vision_embeds` (B, vision_patches, d_model) to the
+        tokens; the encdec family encodes `enc_embeds` (B, frames, d_model)."""
         cfg = self.config
         h = self._embed(params, tokens)
+        if cfg.family == "vlm":
+            if vision_embeds is None:
+                raise ValueError("the vlm family needs vision_embeds")
+            h = torch.cat([vision_embeds.to(h.dtype), h], dim=1)
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device).expand(B, S)
-        if cfg.family == "dense":
-            kv = []
+        if cfg.family == "encdec":
+            if enc_embeds is None:
+                raise ValueError("the encdec family needs enc_embeds")
+            return self._forward_encdec(params, h, enc_embeds)
+        if cfg.family in ("dense", "moe", "vlm"):
+            kv, aux = [], 0.0
             for lp in params["layers"]:
-                h, kv_l = _transformer_layer_full(lp, cfg, h, positions)
+                h, kv_l, aux_l = _transformer_layer_full(lp, cfg, h, positions)
                 kv.append(kv_l)
-            return self._logits(params, h), kv, 0.0
+                aux = aux + aux_l
+            return self._logits(params, h), kv, aux
         if cfg.family == "ssm":
             states = []
             for lp in params["layers"]:
                 h, st = _ssm_layer_full(lp, cfg, h)
                 states.append(st)
             return self._logits(params, h), states, 0.0
-        return self._forward_hybrid(params, h, positions)
+        if cfg.family == "hybrid":
+            return self._forward_hybrid(params, h, positions)
+        raise ValueError(cfg.family)
 
     def _hybrid_segments(self):
         cfg = self.config
@@ -242,20 +327,57 @@ class Model:
     def _forward_hybrid(self, params, h, positions):
         cfg = self.config
         ssm_states, attn_caches = [], []
-        shared = params["shared_attn"]
+        shared, shared_cfg = params["shared_attn"], cfg.replace(moe=None)
         for a, b in self._hybrid_segments():
             states = []
             for lp in params["layers"][a:b]:
                 h, st = _ssm_layer_full(lp, cfg, h)
                 states.append(st)
             ssm_states.append(states)
-            h, kv = _transformer_layer_full(shared, cfg, h, positions)
+            h, kv, _ = _transformer_layer_full(shared, shared_cfg, h, positions)
             attn_caches.append(kv)
         return self._logits(params, h), (ssm_states, attn_caches), 0.0
 
+    def _forward_encdec(self, params, h_dec, enc_embeds):
+        cfg = self.config
+        enc_cfg = cfg.replace(moe=None)
+        extra = params["extra"]
+        cross_spec = dataclasses.replace(enc_cfg.attn_spec, causal=False)
+        # encoder: bidirectional, learned positions, always the "ref" route
+        he = enc_embeds.to(h_dec.dtype) + extra["enc_pos"][None, : enc_embeds.shape[1]]
+        pos_e = torch.arange(he.shape[1], device=he.device).expand(he.shape[:2])
+        for lp in params["enc_layers"]:
+            a, _ = attn_mod.attend_full(lp, cross_spec, _apply_norm(lp, enc_cfg, he, "ln_attn"), pos_e, "ref")
+            he = he + a
+            f, _ = _ffn_apply(lp, enc_cfg, _apply_norm(lp, enc_cfg, he, "ln_mlp"))
+            he = he + f
+        he = _apply_norm(extra, cfg, he, "enc_final_norm")
+        cross_kvs = [attn_mod.encode_kv(_cross_params(lp), cross_spec, he) for lp in params["layers"]]
+
+        # decoder
+        S = h_dec.shape[1]
+        h = h_dec + extra["dec_pos"][None, :S]
+        pos_d = torch.arange(S, device=h.device).expand(h.shape[:2])
+        self_kv = []
+        for lp, ckv in zip(params["layers"], cross_kvs):
+            a, kv = attn_mod.attend_full(
+                lp, enc_cfg.attn_spec, _apply_norm(lp, enc_cfg, h, "ln_attn"), pos_d, cfg.attn_impl
+            )
+            h = h + a
+            h = h + attn_mod.attend_cross(
+                _cross_params(lp), cross_spec, _apply_norm(lp, enc_cfg, h, "ln_cross"), ckv
+            )
+            f, _ = _ffn_apply(lp, enc_cfg, _apply_norm(lp, enc_cfg, h, "ln_mlp"))
+            h = h + f
+            self_kv.append(kv)
+        return self._logits(params, h), (self_kv, cross_kvs), 0.0
+
     # -------------------------------------------------------------- serving
     def prefill(self, params, batch):
-        logits, cache, _ = self.forward(params, batch["tokens"])
+        logits, cache, _ = self.forward(
+            params, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+            enc_embeds=batch.get("enc_embeds"),
+        )
         return logits[:, -1], cache
 
     def decode_step(self, params, cache, tokens, position: int):
@@ -263,7 +385,7 @@ class Model:
         (logits (B, padded vocab), new cache)."""
         cfg = self.config
         h = self._embed(params, tokens[:, None])
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe", "vlm"):
             new = []
             for lp, c in zip(params["layers"], cache):
                 h, nc = _transformer_layer_decode(lp, cfg, h, c, position)
@@ -275,38 +397,68 @@ class Model:
                 h, ns = _ssm_layer_decode(lp, cfg, h, st)
                 new.append(ns)
             return self._logits(params, h)[:, 0], new
-        ssm_states, attn_caches = cache
-        new_ssm, new_attn = [], []
-        shared = params["shared_attn"]
-        for i, (a, b) in enumerate(self._hybrid_segments()):
-            seg = []
-            for lp, st in zip(params["layers"][a:b], ssm_states[i]):
-                h, ns = _ssm_layer_decode(lp, cfg, h, st)
-                seg.append(ns)
-            new_ssm.append(seg)
-            h, nc = _transformer_layer_decode(shared, cfg, h, attn_caches[i], position)
-            new_attn.append(nc)
-        return self._logits(params, h)[:, 0], (new_ssm, new_attn)
+        if cfg.family == "hybrid":
+            ssm_states, attn_caches = cache
+            new_ssm, new_attn = [], []
+            shared, shared_cfg = params["shared_attn"], cfg.replace(moe=None)
+            for i, (a, b) in enumerate(self._hybrid_segments()):
+                seg = []
+                for lp, st in zip(params["layers"][a:b], ssm_states[i]):
+                    h, ns = _ssm_layer_decode(lp, cfg, h, st)
+                    seg.append(ns)
+                new_ssm.append(seg)
+                h, nc = _transformer_layer_decode(shared, shared_cfg, h, attn_caches[i], position)
+                new_attn.append(nc)
+            return self._logits(params, h)[:, 0], (new_ssm, new_attn)
+        if cfg.family == "encdec":
+            self_kv, cross_kvs = cache
+            enc_cfg = cfg.replace(moe=None)
+            cross_spec = dataclasses.replace(enc_cfg.attn_spec, causal=False)
+            h = h + params["extra"]["dec_pos"][position:position + 1][None]
+            new_self = []
+            for lp, (ck, cv), ckv in zip(params["layers"], self_kv, cross_kvs):
+                hn = _apply_norm(lp, enc_cfg, h, "ln_attn")
+                a, nk, nv = attn_mod.attend_decode(lp, enc_cfg.attn_spec, hn, ck, cv, position)
+                h = h + a
+                h = h + attn_mod.attend_cross(
+                    _cross_params(lp), cross_spec, _apply_norm(lp, enc_cfg, h, "ln_cross"), ckv
+                )
+                f, _ = _ffn_apply(lp, enc_cfg, _apply_norm(lp, enc_cfg, h, "ln_mlp"))
+                h = h + f
+                new_self.append((nk, nv))
+            return self._logits(params, h)[:, 0], (new_self, cross_kvs)
+        raise ValueError(cfg.family)
 
     def grow_cache(self, cache, target_len: int):
-        """Pad the seq axis of every KV buffer to `target_len` (SSM states
-        are seq-free and pass through)."""
+        """Pad the seq axis (axis 1) of every KV buffer and MLA latent to
+        `target_len`; SSM states are seq-free and the encdec cross KV is
+        fixed by the encoder, so both pass through."""
         cfg = self.config
 
         def pad_seq(x):
             cur = x.shape[1]
-            return x if cur >= target_len else F.pad(x, (0, 0, 0, 0, 0, target_len - cur))
+            if cur >= target_len:
+                return x
+            return F.pad(x, (0, 0) * (x.ndim - 2) + (0, target_len - cur))
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe", "vlm"):
             return [tuple(pad_seq(c) for c in kv) for kv in cache]
         if cfg.family == "ssm":
             return cache
-        ssm_states, attn_caches = cache
-        return ssm_states, [tuple(pad_seq(c) for c in kv) for kv in attn_caches]
+        if cfg.family == "hybrid":
+            ssm_states, attn_caches = cache
+            return ssm_states, [tuple(pad_seq(c) for c in kv) for kv in attn_caches]
+        if cfg.family == "encdec":
+            self_kv, cross = cache
+            return [tuple(pad_seq(c) for c in kv) for kv in self_kv], cross
+        raise ValueError(cfg.family)
 
     def generate(self, params, batch, steps: int):
-        """Greedy generation (prefill + decode): (B, steps) tokens."""
+        """Greedy generation (prefill + decode): (B, steps) tokens.  The vlm
+        family's positions count its vision patches first."""
         prompt_len = batch["tokens"].shape[1]
+        if self.config.family == "vlm":
+            prompt_len += self.config.vision_patches
         logits, cache = self.prefill(params, batch)
         cache = self.grow_cache(cache, prompt_len + steps)
         toks = []
@@ -321,6 +473,4 @@ class Model:
 
 
 def build_model(config: ModelConfig) -> Model:
-    if config.family not in FAMILIES:
-        raise NotImplementedError(f"model family {config.family!r} {_NOT_PORTED}")
     return Model(config)

@@ -100,20 +100,40 @@ def test_numerics_match_reference():
 
 
 def test_configs_match_reference():
-    for arch in ("zamba2-1.2b", "mamba2-2.7b", "qwen2-0.5b"):
+    import dataclasses
+
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+
+    assert ARCH_IDS == JARCH_IDS and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
         for port, ref in ((get_config(arch), jget_config(arch)), (get_reduced(arch), jget_reduced(arch))):
             for field in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
-                          "resolved_head_dim", "padded_vocab", "qkv_bias", "rope_theta", "attn_every"):
+                          "resolved_head_dim", "padded_vocab", "qkv_bias", "qk_norm", "rope_theta",
+                          "rope_fraction", "norm", "norm_offset", "act", "gated_mlp", "embed_scale",
+                          "attn_every", "n_enc_layers", "enc_positions", "vision_patches", "moe_impl",
+                          "mla_decode_impl"):
                 assert getattr(port, field) == getattr(ref, field), (arch, field)
+            assert dataclasses.asdict(port.attn_spec) == dataclasses.asdict(ref.attn_spec), arch
+            for spec in ("moe", "mla"):
+                a, b = getattr(port, spec), getattr(ref, spec)
+                assert (a is None) == (b is None), (arch, spec)
+                if a is not None:
+                    assert dataclasses.asdict(a) == dataclasses.asdict(b), (arch, spec)
             if ref.ssm is not None:
                 for field in ("d_state", "d_conv", "expand", "head_dim", "n_groups", "chunk", "in_dim"):
                     assert getattr(port.ssm, field) == getattr(ref.ssm, field), (arch, field)
     assert get_config("zamba2-1.2b").param_count() == jget_config("zamba2-1.2b").param_count()
     assert get_config("zamba2-1.2b").attn_impl == get_config("zamba2-1.2b").ssm_impl == "kernel"
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("gemma-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_reduced("qwen2-0.5b").replace(family="moe"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    with pytest.raises(KeyError, match="unknown arch"):
+        jget_config("no-such-arch")
+    # an unknown family raises at init, as the reference's does
+    with pytest.raises(ValueError, match="bogus"):
+        build_model(get_reduced("qwen2-0.5b").replace(family="bogus")).init(device="meta")
+    with pytest.raises(ValueError, match="bogus"):
+        jbuild(jget_reduced("qwen2-0.5b").replace(family="bogus")).init(KEY, abstract=True)
     assert impl_from_reference("pallas") == "kernel" and impl_from_reference("chunked") == "chunked"
 
 
