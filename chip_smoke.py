@@ -70,9 +70,26 @@ JAX package.  Phases, one JSON line each:
             re-plans' kw_queue calls bit-equal, the sketch tails against
             np.percentile, the SLO report, the private trace's Chrome
             round trip
+  train     `repro_torch.launch.train` on qwen2-0.5b at full width and
+            depth (24 layers, 630.4 M parameters, bf16, float32 AdamW
+            moments): 30 steps of 8 x 512 tokens in 8 shards on a Pareto(2,
+            1) `SimCluster` (slow fraction 0.15, crashes 0.01, node loss
+            0.002), `adapt_policy` on, a checkpoint every 10 steps into a
+            temporary directory: the loss falls by more than 0.5, a re-plan
+            ran on the card, the pool held; a fresh run restores step 30 bit
+            for bit and one step from the step-20 checkpoint gives the
+            step-21 loss; one literal-replica step against one global step;
+            float32 gradients of 2 full-width layers on the card against the
+            CPU; the flash and SSD kernels refuse autograd on the card; step
+            ms, tokens/s, MFU, the gradient and AdamW alone, peak bytes.
+            Training runs none of the four kernels (attention "chunked",
+            the SSM "jnp", as the reference trains), so it adds no path to
+            the kernel table's counts
 
 The profilers run after every timed phase: `obs.kernel_profile` over one
-re-plan's search (phase `fleet_adaptive_profile`), then, with `--profile`,
+re-plan's search (phase `fleet_adaptive_profile`), one more training step,
+its gradient and its AdamW update under torch.profiler (phase
+`train_profile`: launches, device ms by kernel), then, with `--profile`,
 one request's prefill and 8 decode steps (phase `serve_profile`), the
 same for moonshot-v1-16b-a3b with 4 decode steps (phase
 `serve_moe_profile`), one more `frontier` call (phase `profile`), one more
@@ -179,6 +196,11 @@ FULL = dict(
     # 1024-token prompts, prefill plus one greedy token, on 32 replicas
     # (c = 4) at rho = 0.7 under the baseline
     fleet_serve=dict(capacity=32, requests=8, batches=40, prompt=1024, steps=1, rho=0.7, mc_reps=20000),
+    # launch/train.py on qwen2-0.5b at full width and depth (24 layers,
+    # 630.4 M parameters, bf16): 30 steps of 8 x 512 tokens in 8 shards, a
+    # checkpoint every 10; the card-vs-CPU gradients on 2 of its layers
+    train=dict(arch="qwen2-0.5b", reduced=False, steps=30, batch=8, seq=512, n_tasks=8, checkpoint_every=10,
+               warmup=2, optimizer_reps=5, check_layers=2),
 )
 
 
@@ -969,14 +991,10 @@ def _rel_err(torch, got, ref) -> float:
 
 
 def cast_params(params, dtype):
-    """A copy of a parameter tree (dicts and lists of dicts: `top`,
-    `layers`, `shared_attn`, `enc_layers`, `extra`) with every tensor in
-    `dtype`."""
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
-    if isinstance(params, list):
-        return [cast_params(v, dtype) for v in params]
-    return params.to(dtype)
+    """A copy of a parameter tree with every tensor in `dtype`."""
+    from repro_torch import tree
+
+    return tree.tree_map(lambda t: t.to(dtype), params)
 
 
 def prefill_checks(torch, model, params, tokens, decode_model=None) -> dict:
@@ -1133,13 +1151,13 @@ def moe_bounds(cfg, params, S: int, cap: int) -> dict:
     (decode) once.  Operations: the products the code runs, the experts
     over every slot of the (E, C, d) buffer (C = `cap` at prefill; decode's
     C = 1 runs all E experts) and the unembedding over every position."""
-    from repro_torch.models.lm import param_leaves
+    from repro_torch import tree
 
     m, emb = cfg.moe, params["top"]["embed"]
     elt = emb.element_size()
     d, L, V, H, D = cfg.d_model, cfg.n_layers, cfg.padded_vocab, cfg.n_heads, cfg.resolved_head_dim
     HD, KVD = H * D, cfg.n_kv_heads * D
-    weights = sum(t.numel() * t.element_size() for t in param_leaves(params)) - emb.numel() * elt
+    weights = sum(t.numel() * t.element_size() for t in tree.leaves(params)) - emb.numel() * elt
     cache = L * 2 * S * KVD * elt
 
     def ops(T, ctx_pairs, slots):
@@ -1538,6 +1556,236 @@ def phase_fleet_serve(torch, device, sizes, served) -> dict:
     return launches
 
 
+def train_argv(tr: dict, device, checkpoint_dir: str) -> list:
+    """`launch/train.py`'s command line for a `sizes` entry, seed 0, with
+    the defaults of its cluster: Pareto(2, 1) task times, slow fraction
+    0.15, crash probability 0.01, node loss 0.002, `adapt_policy` on."""
+    return ["--arch", tr["arch"], "--reduced" if tr["reduced"] else "--full", "--steps", str(tr["steps"]),
+            "--batch", str(tr["batch"]), "--seq", str(tr["seq"]), "--n-tasks", str(tr["n_tasks"]),
+            "--checkpoint-dir", checkpoint_dir, "--checkpoint-every", str(tr["checkpoint_every"]),
+            "--log-every", "5", "--seed", "0", "--device", str(device)]
+
+
+def _states_equal(torch, a, b) -> bool:
+    from repro_torch import tree
+
+    la, lb = tree.leaves_with_path(a), tree.leaves_with_path(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def train_checks_on_cpu(torch, device, tr: dict) -> dict:
+    """One shard's gradients (1 x seq tokens) of the config cut to
+    `check_layers` layers, in float32, on `device` against the port on the
+    CPU, and the kernels' refusal of autograd on `device`.  Each leaf's
+    max |Δ| over its max |g|; the key biases' gradients are zero in exact
+    arithmetic (softmax ignores a shift shared by all keys), so theirs is
+    measured against the largest gradient of the model."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import build_model
+
+    cfg = (get_reduced(tr["arch"]) if tr["reduced"] else get_config(tr["arch"])).replace(
+        n_layers=tr["check_layers"], param_dtype=torch.float32, attn_impl="chunked", ssm_impl="jnp")
+    model = build_model(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    params = tree.tree_map(lambda t: t.to(device), params_cpu)
+    batch_cpu = SyntheticTokenPipeline(cfg, batch_size=1, seq_len=tr["seq"], seed=0, device="cpu").batch(0)
+    batch = {k: v.to(device) for k, v in batch_cpu.items()}
+    grad = value_and_grad(model.loss)
+    (loss_cpu, _), g_cpu = grad(params_cpu, batch_cpu)
+    (loss_dev, _), g_dev = grad(params, batch)
+    top = max(float(g.abs().max()) for g in tree.leaves(g_cpu))
+    rel, shift = {}, 0.0
+    for (key, want), got in zip(tree.leaves_with_path(g_cpu), tree.leaves(g_dev)):
+        err = float((got.cpu() - want).abs().max())
+        if key.endswith("['attn/bk']"):
+            shift = max(shift, err / top)
+        else:
+            rel[key] = err / float(want.abs().max())
+    worst = max(rel, key=rel.get)
+    check(rel[worst] < 1e-4, f"float32 gradients on {device} vs the CPU: {worst} {rel[worst]:.3g} < 1e-4")
+    check(shift < 1e-6, f"key-bias gradients (zero in exact arithmetic) within 1e-6 of the largest: {shift:.3g}")
+    loss_rel = abs(float(loss_dev) - float(loss_cpu)) / abs(float(loss_cpu))
+    check(loss_rel < 1e-5, f"float32 loss on {device} vs the CPU: {loss_rel:.3g} < 1e-5")
+
+    # the kernel routes have no backward: autograd through them raises
+    refused = []
+    with uncounted():
+        try:
+            value_and_grad(build_model(cfg.replace(attn_impl="kernel")).loss)(params, batch)
+        except RuntimeError as e:
+            refused.append(str(e))
+        x = torch.randn(1, 64, 4, 16, device=device, requires_grad=True)
+        dt, A, D = torch.rand(1, 64, 4, device=device), -torch.rand(4, device=device), torch.ones(4, device=device)
+        Bm = torch.randn(1, 64, 1, 16, device=device)
+        try:
+            ops.ssd_scan(x, dt, A, Bm, Bm, D, chunk=32)
+        except RuntimeError as e:
+            refused.append(str(e))
+    check(len(refused) == 2 and all("no backward pass" in e for e in refused),
+          f"flash_attention and ssd_scan refuse autograd on {device}: {refused}")
+    return dict(layers=cfg.n_layers, tokens=tr["seq"], grad_max_rel_err=rel[worst], grad_worst_leaf=worst,
+                key_bias_grad_err_vs_largest=shift, loss_rel_err=loss_rel, kernels_refuse_autograd=refused)
+
+
+def phase_train(torch, device, sizes):
+    """`repro_torch.launch.train` as a user runs it: the straggler-aware
+    trainer over the config at its published widths and depth (bf16
+    parameters, float32 moments), a global batch of `batch` x `seq`
+    tokens in `n_tasks` shards on a Pareto(2, 1) `SimCluster`, the
+    controller re-planning on the card, a checkpoint every
+    `checkpoint_every` steps into a temporary directory.  Then the checks:
+    the loss falls by more than 0.5 (tests/test_system.py's gate), a re-plan
+    ran, the pool held; a fresh run restores the last step bit for bit and
+    one step from the step-20 checkpoint gives the run's step-21 loss; one
+    step with literal replicas against one global step from the same state
+    (atol = rtol = 2e-2, tests/test_runtime.py's bound for bf16); the
+    gradients on the card against the CPU (`train_checks_on_cpu`).
+    Training runs none of the four kernels (chunked attention, the "jnp"
+    SSM): their counters must not move.  Returns the first run, whose
+    trainer phase `train_profile` steps once more."""
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree
+    from repro_torch.core import Pareto
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.runtime import SimCluster, StragglerAwareTrainer, TrainerConfig
+
+    tr = sizes["train"]
+    kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)
+    before = [k.launches for k in kernels]
+    free_device(torch, device)
+    log = lambda line: emit("train_log", line=line)
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        argv = train_argv(tr, device, tmp)
+        run1, wall, peak = _timed_call(torch, device, lambda: train.run(train.parse_args(argv), log=log))
+        lap("run")
+        trainer, pipe, cfg = run1.trainer, run1.pipeline, run1.pipeline.config
+        losses = [r.loss for r in run1.reports]
+        check(len(losses) == tr["steps"] and all(math.isfinite(x) for x in losses), f"{tr['steps']} finite losses")
+        check(losses[-1] < losses[0] - 0.5, f"the loss fell by more than 0.5: {losses[0]:.4f} -> {losses[-1]:.4f}")
+        ctrl = trainer.controller
+        check(len(ctrl.history) >= 1 and ctrl.device.type == device.type,
+              f"re-plans through the controller on {device}: {len(ctrl.history)}")
+        check(trainer.cluster.n_alive >= tr["n_tasks"], f"the pool held {tr['n_tasks']} workers or more")
+        check(ckpt.all_steps(tmp)[-3:] == [tr["steps"] - 2 * tr["checkpoint_every"],
+                                            tr["steps"] - tr["checkpoint_every"], tr["steps"]], "checkpoints kept")
+
+        # the optimizer alone, and the gradient alone, on the run's last state
+        state = trainer.state
+        batch = pipe.batch(tr["steps"])
+        _, grads = trainer.grad_fn(state["params"], batch)
+        opt_ms = time_ms(torch, lambda: trainer.update_fn(state, grads), tr["optimizer_reps"], device)
+        grad_ms = time_ms(torch, lambda: trainer.grad_fn(state["params"], batch), tr["optimizer_reps"], device)
+        leaves = list(zip(tree.leaves(state["params"]), tree.leaves(grads)))
+        opt_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16) for p, g in leaves)
+        del grads
+        free_device(torch, device)
+        lap("timing")
+
+        # restart: a fresh run restores the last checkpoint bit for bit
+        run2 = train.run(train.parse_args(argv), log=log)
+        check(run2.resumed == tr["steps"], f"a fresh trainer resumed at step {run2.resumed}")
+        check(_states_equal(torch, run2.trainer.state, state), "the restored state is bit-equal to the run's")
+        # one further step from the step-20 checkpoint
+        resume = 2 * tr["checkpoint_every"]
+        t2 = run2.trainer
+        t2.state = ckpt.restore(tmp, state, step=resume, device=device)
+        t2.step = resume
+        rep21 = t2.train_step(pipe.batch(resume))
+        want21 = run1.reports[resume].loss
+        restart_rel = abs(rep21.loss - want21) / abs(want21)
+        check(rep21.step == resume + 1 and restart_rel < 1e-3,
+              f"step {resume + 1} from the step-{resume} checkpoint: loss {rep21.loss} vs {want21}")
+        del run2, t2
+        free_device(torch, device)
+        lap("restart")
+
+    # literal replicas: n shards of batch / n rows against the global batch
+    def one_step(literal):
+        t = StragglerAwareTrainer(
+            SimCluster(2 * tr["n_tasks"], Pareto(2.0, 1.0), seed=0), trainer.grad_fn, trainer.update_fn, state,
+            TrainerConfig(n_tasks=tr["n_tasks"], adapt_policy=False, literal_replicas=literal), device=device)
+        t.step = tr["steps"]
+        rep = t.train_step(batch)
+        return rep, t.state["params"]
+
+    rep_lit, p_lit = one_step(True)
+    rep_glob, p_glob = one_step(False)
+    lit_err, moved = 0.0, 0.0
+    for a, b, p0 in zip(tree.leaves(p_lit), tree.leaves(p_glob), tree.leaves(state["params"])):
+        a, b = a.float(), b.float()
+        check(bool(((a - b).abs() <= 2e-2 + 2e-2 * b.abs()).all()), "literal replicas vs the global step: 2e-2")
+        lit_err = max(lit_err, float((a - b).abs().max()))
+        moved = max(moved, float((b - p0.float()).abs().max()))
+    lit_loss_rel = abs(rep_lit.loss - rep_glob.loss) / abs(rep_glob.loss)
+    del p_lit, p_glob
+    free_device(torch, device)
+    lap("literal")
+    cpu = train_checks_on_cpu(torch, device, tr)
+    lap("card_vs_cpu")
+    check([k.launches for k in kernels] == before, "training launched none of the four kernels")
+
+    tokens = tr["batch"] * tr["seq"]
+    warm = tr["warmup"]
+    step_ms = float(np.median(run1.step_ms[warm:]))
+    every = tr["checkpoint_every"]
+    save_ms = [run1.step_ms[i] - step_ms for i in range(every - 1, tr["steps"], every)]
+    flops = 6 * run1.n_params * tokens
+    bound_ms = flops / BF16_OPS_PER_S * 1e3
+    emit("train", arch=cfg.arch_id, params=run1.n_params, layers=cfg.n_layers, d_model=cfg.d_model,
+         padded_vocab=cfg.padded_vocab, dtype=str(cfg.param_dtype), batch=tr["batch"], seq=tr["seq"],
+         n_tasks=tr["n_tasks"], steps=tr["steps"], wall_s=wall, peak_bytes=peak,
+         step_ms=dict(median=step_ms, first=run1.step_ms[0], all=run1.step_ms),
+         step_device_ms=None if run1.step_device_ms is None else dict(
+             median=float(np.median(run1.step_device_ms[warm:])), all=run1.step_device_ms),
+         checkpoint_save_ms=save_ms, seconds=seconds, tokens_per_s=tokens / (step_ms / 1e3), model_flops=flops, model_bound_ms=bound_ms,
+         mfu=bound_ms / step_ms, grad_ms=grad_ms, optimizer_ms=opt_ms, optimizer_bytes=opt_bytes,
+         optimizer_bound_ms=bound(opt_bytes, 0)[0], losses=losses, replans=len(ctrl.history),
+         final_policy=trainer.policy.label(), controller_policy=ctrl.current_policy().label(),
+         sim_latency_s=sum(r.latency for r in run1.reports), sim_cost=sum(r.cost for r in run1.reports),
+         replicas=sum(r.n_replicas for r in run1.reports), lost_workers=sum(len(r.lost_workers) for r in run1.reports),
+         pool=trainer.cluster.n_alive, restart=dict(resumed=tr["steps"], bit_equal=True, loss=rep21.loss,
+                                                   want=want21, rel_err=restart_rel, bitwise=rep21.loss == want21),
+         literal=dict(max_abs_param_diff=lit_err, max_abs_update=moved, loss_rel_err=lit_loss_rel),
+         card_vs_cpu=cpu)
+    return run1
+
+
+def phase_train_profile(torch, device, run1) -> None:
+    """Phase train's trainer under torch.profiler: one more step, then the
+    same step's gradient and its AdamW update alone (launches, device ms
+    by kernel, the device's idle share of the profiled wall time)."""
+    trainer = run1.trainer
+    trainer.cfg.checkpoint_dir = None
+    batch = run1.pipeline.batch(trainer.step)
+    if device.type != "cuda":  # torch.profiler's device trace needs the card
+        trainer.train_step(batch)
+        return
+    step = profiled(torch, lambda: trainer.train_step(batch), top_n=16)
+    box = {}
+
+    def grad():
+        box["grads"] = trainer.grad_fn(trainer.state["params"], batch)[1]
+
+    grad_only = profiled(torch, grad, top_n=16)
+    update_only = profiled(torch, lambda: trainer.update_fn(trainer.state, box["grads"]), top_n=8)
+    emit("train_profile", arch=run1.pipeline.config.arch_id, step=step, grad=grad_only, update=update_only)
+
+
 def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     """Every phase but the device line; returns the kernel table."""
     import torch
@@ -1575,10 +1823,14 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
         kernel.launches = 0
     phase_fleet_serve(torch, device, sizes, served)
     paths["fleet_serve"] = {k: getattr(ops, k).launches for k in ("kw_queue", "flash_attention", "ssd_scan")}
+    trained = phase_train(torch, device, sizes)
     emit("launches", **paths)
     # torch.profiler only after every timed phase, so that no timing
     # follows a profiler session
     phase_fleet_adaptive_profile(torch, device, first_replan)
+    phase_train_profile(torch, device, trained)
+    del trained
+    free_device(torch, device)
     if profile:
         tokens = torch.as_tensor(served.requests[0], dtype=torch.int32, device=device)[None, :]
         profile_serving(torch, served.model, served.params, tokens, steps=8)

@@ -1,7 +1,8 @@
 """Carry the reference's state into the port.
 
 The planner's state is the distribution parameters, the sorted empirical
-trace and the lowered policy tensors; the LM's is its parameter tree.
+trace and the lowered policy tensors; the LM's is its parameter tree, and
+the trainer's its parameters, AdamW moments and step.
 These functions build the port's objects from the reference's numpy arrays
 and fields, so a test can feed both packages exactly the same state
 (policy-lowering parity and evaluator parity are then tested apart).
@@ -81,13 +82,14 @@ def impl_from_reference(name: str) -> str:
     return _IMPLS.get(name, name)
 
 
-def model_params_from_reference(params, cfg, device) -> dict:
+def model_params_from_reference(params, cfg, device, dtype=None) -> dict:
     """The port's parameters from the reference's parameter tree, its
     leaves given as numpy arrays: `top`, `shared_attn` and `extra` key for
     key, and the stacked (L, ...) arrays of `layers` and `enc_layers` as
     one dict per layer.  Each tensor takes the dtype the port's own init
     gives it (`cfg.param_dtype`; float32 for the SSM's A_log, dt_bias and D
-    and the MoE router)."""
+    and the MoE router), or `dtype` where one is given (the optimizer's
+    float32 moments, which share the parameters' tree)."""
     from .models.lm import build_model
 
     like = build_model(cfg).init(device="meta")
@@ -102,7 +104,7 @@ def model_params_from_reference(params, cfg, device) -> dict:
             t = torch.from_numpy(np.array(arrays[k], dtype=np.float32))
             if tuple(t.shape) != tuple(want.shape):
                 raise ValueError(f"{where}/{k}: shape {tuple(t.shape)}, expected {tuple(want.shape)}")
-            out[k] = t.to(device=device, dtype=want.dtype)
+            out[k] = t.to(device=device, dtype=dtype or want.dtype)
         return out
 
     out = {}
@@ -118,3 +120,18 @@ def model_params_from_reference(params, cfg, device) -> dict:
             for i in range(n_layers)
         ]
     return out
+
+
+def train_state_from_reference(state, cfg, device) -> dict:
+    """The port's trainer state from the reference's `{"params", "opt":
+    {"m", "v"}, "step"}` (launch/train.py's), its leaves given as numpy
+    arrays (a checkpoint of `repro.checkpoint.save` read with numpy, say):
+    the parameters as `model_params_from_reference` carries them, the
+    moments m and v in float32 on the same tree, and `step` an int32
+    scalar."""
+    return {
+        "params": model_params_from_reference(state["params"], cfg, device),
+        "opt": {k: model_params_from_reference(state["opt"][k], cfg, device, dtype=torch.float32)
+                for k in ("m", "v")},
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device),
+    }

@@ -20,7 +20,9 @@ causal, bf16: 16.8 MB moved, 5.0 µs at 3.35 TB/s, against 4.3 GFLOP, 4.3
 µs at the bf16 tensor-core rate (see the source and PERF.md).
 
 `flash_attention` takes the plain version only for tensors on the CPU.  For
-a CUDA tensor it launches the kernel or raises.  `flash_attention.launches`
+a CUDA tensor it launches the kernel or raises.  On every device it refuses
+inputs that require grad while autograd records: the kernel has no
+backward pass.  `flash_attention.launches`
 counts the kernel launches.
 """
 
@@ -50,6 +52,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def _refuse_autograd(*tensors):
+    """The kernel writes its outputs through raw pointers, so they carry no
+    `grad_fn`: a backward through it would treat it as a constant.  Refuse
+    on every device, the CPU included, so CPU tests see what the card does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward pass; train through "
+            'attn_impl="chunked" (the reference trains through its plain routes too)'
+        )
+
+
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _DTYPES:
@@ -74,6 +87,7 @@ def _check(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True):
     """(B, Sq, H, D) attention; see `flash_attention_plain` for the contract."""
     _check(q, k, v)
+    _refuse_autograd(q, k, v)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)

@@ -21,7 +21,9 @@ chunks in order on the CUDA cores.  Bound on an H100 at the serve shape
 3.35 TB/s (see the source and PERF.md).
 
 `ssd_scan` takes the plain version only for tensors on the CPU.  For a
-CUDA tensor it launches the kernels or raises.  `ssd_scan.launches` counts
+CUDA tensor it launches the kernels or raises.  On every device it refuses
+inputs that require grad while autograd records: the kernels have no
+backward pass.  `ssd_scan.launches` counts
 the wrapper's calls that launched (each `CUDA_LAUNCHES[dtype]` kernels).
 """
 
@@ -78,6 +80,17 @@ def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 128):
     return y.reshape(Bt, nc * Q, H, P)[:, :S].to(x.dtype), h
 
 
+def _refuse_autograd(*tensors):
+    """The kernel writes its outputs through raw pointers, so they carry no
+    `grad_fn`: a backward through it would treat it as a constant.  Refuse
+    on every device, the CPU included, so CPU tests see what the card does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "ssd_scan: the kernel has no backward pass; train through "
+            'ssm_impl="jnp" (the reference trains through its plain routes too)'
+        )
+
+
 def _check(x, dt, A, B, C, D, chunk):
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssd_scan: x must be float32 or bfloat16, got {x.dtype}")
@@ -112,6 +125,7 @@ def _check(x, dt, A, B, C, D, chunk):
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
     """Chunked SSD scan from a zero state; see `ssd_scan_plain`."""
     _check(x, dt, A, B, C, D, chunk)
+    _refuse_autograd(x, dt, A, B, C, D)
     dev = x.device
     if dev.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)

@@ -1,1 +1,3 @@
-"""Entry points of the port: `serve` (hedged LM serving)."""
+"""Entry points of the port: `serve` (hedged LM serving) and `train`
+(straggler-aware data-parallel training), with the step functions
+(`steps`) and the assigned input shapes (`shapes`)."""

@@ -8,6 +8,7 @@ architecture; `build_model` returns a `Model` with
     init(seed, device)                -> params
     forward(params, tokens, vision_embeds=None, enc_embeds=None)
                                       -> (logits, cache, aux)
+    loss(params, batch)               -> (total, {"ce", "aux"})
     prefill(params, batch)            -> (last logits, cache)
     decode_step(params, cache, tokens, position) -> (logits, cache)
     grow_cache(cache, target_len)     -> cache with room for target_len
@@ -21,7 +22,9 @@ scans), `params["shared_attn"]` for the hybrid, and `params["enc_layers"]`
 enc_final_norm) for the encdec family.  The reference's `lax.scan` over
 layers is a Python loop.  `attn_impl` and `ssm_impl` default to "kernel",
 the hand-written CUDA kernels (the reference's "pallas"); "chunked" / "ref"
-and "jnp" keep its other routes.  As in the reference, MLA prefill runs
+and "jnp" keep its other routes.  The kernels have no backward pass and
+refuse autograd, so training takes "chunked" and "jnp", the reference's
+defaults (`launch/train.py` sets them).  As in the reference, MLA prefill runs
 the materialized scores for "kernel", the whisper encoder runs "ref"
 whatever `attn_impl` says, and cross attention runs "ref".
 """
@@ -35,6 +38,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import tree
 from ..device import resolve_device
 from . import attention as attn_mod
 from . import mla as mla_mod
@@ -105,7 +109,7 @@ class ModelConfig:
     def param_count(self) -> int:
         """Total parameter count, from an init on the meta device (no
         allocation)."""
-        return sum(t.numel() for t in param_leaves(build_model(self).init(device="meta")))
+        return sum(t.numel() for t in tree.leaves(build_model(self).init(device="meta")))
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: top_k + shared experts only)."""
@@ -115,14 +119,6 @@ class ModelConfig:
         m = self.moe
         per_expert = 3 * m.d_ff * m.d_model
         return total - (m.n_experts - m.top_k) * per_expert * self.n_layers
-
-
-def param_leaves(params) -> list:
-    """Every tensor of a parameter tree (dicts and lists of dicts)."""
-    if isinstance(params, torch.Tensor):
-        return [params]
-    values = params.values() if isinstance(params, dict) else params
-    return [t for v in values for t in param_leaves(v)]
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +367,29 @@ class Model:
             h = h + f
             self_kv.append(kv)
         return self._logits(params, h), (self_kv, cross_kvs), 0.0
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, batch):
+        """Next-token CE (fp32) + 0.01 * the MoE aux -> (total, {"ce",
+        "aux"}).  batch: {tokens, labels, [vision_embeds | enc_embeds]}.
+        Labels below 0 are masked; the logsumexp runs over the padded
+        vocabulary, as in the reference."""
+        cfg = self.config
+        logits, _, aux = self.forward(
+            params, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+            enc_embeds=batch.get("enc_embeds"),
+        )
+        labels = batch["labels"]
+        if cfg.family == "vlm":  # logits cover [vision; text]; loss on text
+            logits = logits[:, cfg.vision_patches:]
+        logits = logits.float()
+        mask = (labels >= 0).float()
+        safe = torch.clamp(labels, min=0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        ce = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # -------------------------------------------------------------- serving
     def prefill(self, params, batch):

@@ -223,3 +223,28 @@ def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take():
         ops.ssd_scan(*ok, chunk=0)
     with pytest.raises(ValueError, match="device"):
         ops.ssd_scan(*(t.to("meta") for t in ok))
+
+
+def test_training_entry_points_default_to_the_card_and_never_fall_back(monkeypatch, tmp_path):
+    from repro_torch import checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.runtime import SimCluster, StragglerAwareTrainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    checkpoint.save(tmp_path, {"a": torch.ones(2)}, step=1)
+    calls = [
+        lambda: train.main(["--reduced", "--steps", "1"]),
+        lambda: StragglerAwareTrainer(SimCluster(8, ShiftedExp(1.0, 1.0)), None, None, {}, TrainerConfig()),
+        lambda: SyntheticTokenPipeline(get_reduced("qwen2-0.5b"), batch_size=2, seq_len=8),
+        lambda: checkpoint.restore(tmp_path, {"a": torch.zeros(2)}),
+        lambda: SyntheticTokenPipeline(get_reduced("qwen2-0.5b"), batch_size=2, seq_len=8, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert checkpoint.restore(tmp_path, {"a": torch.zeros(2)}, device="cpu")["a"].tolist() == [1.0, 1.0]
+    trainer = StragglerAwareTrainer(SimCluster(8, ShiftedExp(1.0, 1.0)), None, None, {}, TrainerConfig(),
+                                    device="cpu")
+    assert trainer.device.type == "cpu" and trainer.controller.device.type == "cpu"
