@@ -85,6 +85,21 @@ JAX package.  Phases, one JSON line each:
             Training runs none of the four kernels (attention "chunked",
             the SSM "jnp", as the reference trains), so it adds no path to
             the kernel table's counts
+  sharded_train  `launch.steps.plan_train`'s step on DTensors over a
+            one-rank NCCL mesh (`launch.mesh.make_device_mesh`), qwen2-0.5b
+            at full width and depth on phase train's 8 x 512 tokens, 3 steps
+            beside 3 of `make_train_step` from one seed-0 state: every loss
+            within 1e-6 relative, every parameter within one bf16 ulp of its
+            own magnitude, the share of bit-equal leaves; both steps' ms,
+            the collectives issued (count, bytes), peak bytes; the process
+            group destroyed at the end
+  dryrun    `launch.dryrun.run_cell("qwen2-0.5b", "train_4k", "single" |
+            "multi")` on the card's host (256 and 512 fake ranks, meta
+            shards): status OK, per-rank argument bytes equal to the rules'
+            shards, collective bytes > 0; then phase sharded_train's step on
+            a (1, 1) fake mesh through `roofline.analyze_cell`, its compute
+            and memory terms (predicted MFU) against the measured plain step
+            (read MFU).  Neither phase launches one of the four kernels
 
 The profilers run after every timed phase: `obs.kernel_profile` over one
 re-plan's search (phase `fleet_adaptive_profile`), one more training step,
@@ -134,11 +149,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 (non-tensor)
-#: op/s, dense bf16 tensor-core op/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+sys.path.insert(0, str(ROOT / "src"))
+#: H100 SXM peaks (NVIDIA data sheet, `repro_torch.launch.mesh`): HBM3
+#: bytes/s, FP32 (non-tensor) op/s, dense bf16 tensor-core op/s
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_OPS_PER_S  # noqa: E402
 
 #: (B, S, H, D, causal, dtype) of tests/test_kernels.py's FLASH_CASES and
 #: (Bt, S, H, P, G, N, chunk, dtype) of its SSD_CASES
@@ -201,6 +217,12 @@ FULL = dict(
     # checkpoint every 10; the card-vs-CPU gradients on 2 of its layers
     train=dict(arch="qwen2-0.5b", reduced=False, steps=30, batch=8, seq=512, n_tasks=8, checkpoint_every=10,
                warmup=2, optimizer_reps=5, check_layers=2),
+    # plan_train's step on a one-rank NCCL mesh beside make_train_step, from
+    # one state, on phase train's config and batch
+    sharded_train=dict(arch="qwen2-0.5b", reduced=False, steps=3, batch=8, seq=512),
+    # the dry-run's train_4k cell on 256 and 512 fake ranks, then phase
+    # sharded_train's step on a (1, 1) fake mesh through the roofline
+    dryrun=dict(arch="qwen2-0.5b", shape="train_4k", meshes=("single", "multi")),
 )
 
 
@@ -1765,6 +1787,176 @@ def phase_train(torch, device, sizes):
     return run1
 
 
+def sharded_train_config(st: dict):
+    """Phase sharded_train's config: the reference's training routes."""
+    from repro_torch.configs import get_config, get_reduced
+
+    return (get_reduced(st["arch"]) if st["reduced"] else get_config(st["arch"])).replace(
+        attn_impl="chunked", ssm_impl="jnp")
+
+
+def phase_sharded_train(torch, device, sizes) -> dict:
+    """`launch.steps.plan_train`'s step on DTensors over a one-rank mesh
+    (`launch.mesh.make_device_mesh`: NCCL on the card, gloo on the CPU)
+    beside `make_train_step` on plain tensors, `steps` steps each from one
+    seed-0 state on the pipeline's batches: every loss within 1e-6
+    relative, every parameter within one bf16 ulp of its own magnitude
+    (and the share of bit-equal leaves); the step ms of both (the first
+    step of each left out), the collectives the sharded step issues (count
+    and operand bytes, `dryrun.LocalCost` over its first step) and each
+    side's peak bytes.  The process group is destroyed at the end.
+    Returns the phase's figures for phase dryrun."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import LocalCost
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    st = sizes["sharded_train"]
+    cfg = sharded_train_config(st)
+    shape = ShapeSpec("sharded_train", st["seq"], st["batch"], "train")
+    free_device(torch, device)
+    mesh = make_device_mesh(None if device.type == "cuda" else str(device))
+    try:
+        fn, (st_pl, b_pl), _, _ = steps.plan_train(cfg, shape, mesh)
+        plain = steps.make_train_step(cfg, AdamWConfig())
+        params = build_model(cfg).init(seed=0, device=device)
+        state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=device)}
+        dstate = shd.distribute(state, st_pl, mesh)
+        pipe = SyntheticTokenPipeline(cfg, batch_size=st["batch"], seq_len=st["seq"], seed=0, device=device)
+        losses, plain_ms, sharded_ms, peaks = [], [], [], {"plain": 0, "sharded": 0}
+        counted = None
+        for i in range(st["steps"]):
+            batch = pipe.batch(i)
+            (state, m_plain), wall, peak = _timed_call(torch, device, lambda: plain(state, batch))
+            plain_ms.append(wall * 1e3)
+            peaks["plain"] = max(peaks["plain"], peak or 0)
+            dbatch = shd.distribute(batch, b_pl, mesh)
+            if i == 0:
+                with LocalCost() as cost:
+                    (dstate, m_sh), wall, peak = _timed_call(torch, device, lambda: fn(dstate, dbatch))
+                counted = dict(count=cost.n_collectives, bytes=dict(cost.collectives))
+            else:
+                (dstate, m_sh), wall, peak = _timed_call(torch, device, lambda: fn(dstate, dbatch))
+            sharded_ms.append(wall * 1e3)
+            peaks["sharded"] = max(peaks["sharded"], peak or 0)
+            losses.append((float(m_plain["loss"]), float(m_sh["loss"].full_tensor())))
+        for i, (a, b) in enumerate(losses):
+            check(math.isfinite(a) and abs(b - a) <= 1e-6 * abs(a),
+                  f"sharded step {i + 1}'s loss {b!r} within 1e-6 relative of the plain step's {a!r}")
+        worst, equal, n = 0.0, 0, 0
+        for (key, want), got in zip(tree.leaves_with_path(state["params"]), tree.leaves(dstate["params"])):
+            got = got.full_tensor()
+            diff = (got.float() - want.float()).abs()
+            # one bf16 ulp of each element's own magnitude: 2^(floor(log2|x|) - 7)
+            ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+            check(bool((diff <= ulp).all()), f"sharded parameter {key} within one bf16 ulp of the plain step's")
+            worst = max(worst, float(diff.max()))
+            equal += bool(torch.equal(got, want))
+            n += 1
+        check(int(dstate["step"].full_tensor()) == st["steps"], "the sharded state's step count")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group is destroyed")
+    out = dict(arch=cfg.arch_id, layers=cfg.n_layers, d_model=cfg.d_model, batch=st["batch"], seq=st["seq"],
+               steps=st["steps"], mesh=dict(shape=list(mesh.shape), names=list(mesh.mesh_dim_names),
+                                            backend="nccl" if device.type == "cuda" else "gloo"),
+               losses=losses, max_abs_param_diff=worst, bit_equal_leaves=equal, leaves=n,
+               bit_equal_share=equal / n, plain_step_ms=plain_ms, sharded_step_ms=sharded_ms,
+               plain_step_ms_median=float(np.median(plain_ms[1:] or plain_ms)),
+               sharded_step_ms_median=float(np.median(sharded_ms[1:] or sharded_ms)),
+               collectives=counted, peak_bytes=peaks, seconds=time.perf_counter() - t_phase)
+    emit("sharded_train", **out)
+    return out
+
+
+def rule_argument_bytes(cfg, shape, mesh) -> int:
+    """Bytes of one rank's shards of `plan_train`'s inputs (state and
+    batch), from the rules alone: each leaf's bytes over the product of
+    the mesh axes its resolved spec shards it over."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.shapes import input_specs
+    from repro_torch.launch.steps import abstract_state
+
+    rules = shd.rules_train(mesh)
+    state, axes = abstract_state(cfg)
+    total = 0
+
+    def add(t, spec):
+        nonlocal total
+        parts = [p for p in spec if p is not None]
+        total += t.numel() * t.element_size() // math.prod(shd._axes_size(mesh, p) for p in parts)
+
+    shd.zip_map(lambda t, ax: add(t, shd.resolve_spec(ax, t.shape, mesh, rules)), state, axes)
+    bd = rules["batch"]
+    for t in input_specs(cfg, shape).values():
+        add(t, (bd,) if t.shape[0] % shd._axes_size(mesh, bd) == 0 else ())
+    return total
+
+
+def phase_dryrun(torch, sizes, sharded: dict) -> None:
+    """The multi-pod dry-run on the card's host (`launch.dryrun.run_cell`):
+    the config's `shape` cell on 256 fake ranks (16 x 16) and on 512 (2 x 16
+    x 16): status OK, per-rank argument bytes equal to the rules' shards,
+    collective bytes > 0.  Then phase sharded_train's step traced on a
+    (1, 1) fake mesh and put through `roofline.analyze_cell`: its compute
+    and memory terms against phase sharded_train's measured plain step
+    (predicted against read MFU)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec
+
+    t_phase = time.perf_counter()
+    dr = sizes["dryrun"]
+    cells = {}
+    for kind in dr["meshes"]:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(dr["arch"], dr["shape"], kind)
+        wall = time.perf_counter() - t0
+        check(rec["status"] == "OK", f"dry-run {dr['arch']} x {dr['shape']} x {kind}: {rec['status']}")
+        n = 512 if kind == "multi" else 256
+        with fake_world(n):
+            want = rule_argument_bytes(dryrun.cell_config(dr["arch"]), SHAPES[dr["shape"]],
+                                       make_production_mesh(multi_pod=kind == "multi"))
+        got = rec["memory"]["argument_size_in_bytes"]
+        check(got == want, f"{kind}: per-rank argument bytes {got} == the rules' shards {want}")
+        coll = sum(rec["collectives"].values())
+        check(coll > 0, f"{kind}: collective bytes {coll} > 0 on {n} ranks")
+        row = roofline.analyze_cell(rec)
+        cells[kind] = dict(n_devices=rec["n_devices"], wall_s=wall, lower_s=rec["lower_s"], trace_s=rec["compile_s"],
+                           memory=rec["memory"], cost=rec["cost"], collectives=rec["collectives"],
+                           n_collectives=rec["n_collectives"], bytes_adjusted=rec["bytes_adjusted"],
+                           rule_argument_bytes=want, roofline=row)
+
+    st = sizes["sharded_train"]
+    shape = ShapeSpec(f"train_{st['batch']}x{st['seq']}", st["seq"], st["batch"], "train")
+    cfg = sharded_train_config(st)
+    with fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        rec = dryrun.trace_cell(cfg, shape, mesh)
+    rec.update(arch=st["arch"], shape=shape.name, mesh="1x1")
+    row = roofline.analyze_cell(rec, shape)
+    step_s = sharded["plain_step_ms_median"] / 1e3
+    predicted = dict(t_compute_s=row["t_compute_s"], t_memory_s=row["t_memory_s"],
+                     t_collective_s=row["t_collective_s"], dominant=row["dominant"],
+                     mfu=row["roofline_fraction"], model_flops=row["model_flops"], flops=rec["cost"]["flops"],
+                     bytes_adjusted=rec["bytes_adjusted"], peak_bytes=rec["memory"]["peak_memory_in_bytes"],
+                     trace_s=rec["compile_s"])
+    emit("dryrun", arch=dr["arch"], shape=dr["shape"], seconds=time.perf_counter() - t_phase, cells=cells,
+         one_rank=dict(shape=shape.name, predicted=predicted,
+                       read=dict(step_s=step_s, mfu=row["model_flops"] / BF16_OPS_PER_S / step_s,
+                                 sharded_step_s=sharded["sharded_step_ms_median"] / 1e3)))
+
+
 def phase_train_profile(torch, device, run1) -> None:
     """Phase train's trainer under torch.profiler: one more step, then the
     same step's gradient and its AdamW update alone (launches, device ms
@@ -1824,6 +2016,11 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     phase_fleet_serve(torch, device, sizes, served)
     paths["fleet_serve"] = {k: getattr(ops, k).launches for k in ("kw_queue", "flash_attention", "ssd_scan")}
     trained = phase_train(torch, device, sizes)
+    before = [k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)]
+    sharded = phase_sharded_train(torch, device, sizes)
+    phase_dryrun(torch, sizes, sharded)
+    check([k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)] == before,
+          "the sharded step and the dry-run launched none of the four kernels")
     emit("launches", **paths)
     # torch.profiler only after every timed phase, so that no timing
     # follows a profiler session
@@ -1866,9 +2063,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch  # noqa: F401  (fails here, before any output, outside a checkout)
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()

@@ -21,8 +21,8 @@ causal, bf16: 16.8 MB moved, 5.0 µs at 3.35 TB/s, against 4.3 GFLOP, 4.3
 
 `flash_attention` takes the plain version only for tensors on the CPU.  For
 a CUDA tensor it launches the kernel or raises.  On every device it refuses
-inputs that require grad while autograd records: the kernel has no
-backward pass.  `flash_attention.launches`
+inputs that require grad while autograd records (the kernel has no
+backward pass), DTensors and meta tensors.  `flash_attention.launches`
 counts the kernel launches.
 """
 
@@ -63,6 +63,21 @@ def _refuse_autograd(*tensors):
         )
 
 
+def _refuse_sharded_or_meta(*tensors):
+    """The kernel takes raw pointers to whole tensors on one device: a
+    DTensor (a shard of a sharded plan) or a meta tensor (a dry-run) has
+    none to give.  Refused on every device."""
+    from torch.distributed.tensor import DTensor
+
+    for t in tensors:
+        if isinstance(t, DTensor) or t.device.type == "meta":
+            kind = "a DTensor" if isinstance(t, DTensor) else "a meta tensor"
+            raise ValueError(
+                f"flash_attention: the kernel takes plain tensors on a CUDA or CPU device, got {kind}; "
+                'shard or trace through attn_impl="chunked" (the sharding plans and the dry-run do)'
+            )
+
+
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _DTYPES:
@@ -86,6 +101,7 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """(B, Sq, H, D) attention; see `flash_attention_plain` for the contract."""
+    _refuse_sharded_or_meta(q, k, v)
     _check(q, k, v)
     _refuse_autograd(q, k, v)
     dev = q.device

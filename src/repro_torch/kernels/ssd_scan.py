@@ -22,8 +22,8 @@ chunks in order on the CUDA cores.  Bound on an H100 at the serve shape
 
 `ssd_scan` takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches the kernels or raises.  On every device it refuses
-inputs that require grad while autograd records: the kernels have no
-backward pass.  `ssd_scan.launches` counts
+inputs that require grad while autograd records (the kernels have no
+backward pass), DTensors and meta tensors.  `ssd_scan.launches` counts
 the wrapper's calls that launched (each `CUDA_LAUNCHES[dtype]` kernels).
 """
 
@@ -91,6 +91,21 @@ def _refuse_autograd(*tensors):
         )
 
 
+def _refuse_sharded_or_meta(*tensors):
+    """The kernel takes raw pointers to whole tensors on one device: a
+    DTensor (a shard of a sharded plan) or a meta tensor (a dry-run) has
+    none to give.  Refused on every device."""
+    from torch.distributed.tensor import DTensor
+
+    for t in tensors:
+        if isinstance(t, DTensor) or t.device.type == "meta":
+            kind = "a DTensor" if isinstance(t, DTensor) else "a meta tensor"
+            raise ValueError(
+                f"ssd_scan: the kernel takes plain tensors on a CUDA or CPU device, got {kind}; "
+                'shard or trace through ssm_impl="jnp" (the sharding plans and the dry-run do)'
+            )
+
+
 def _check(x, dt, A, B, C, D, chunk):
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssd_scan: x must be float32 or bfloat16, got {x.dtype}")
@@ -124,6 +139,7 @@ def _check(x, dt, A, B, C, D, chunk):
 
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
     """Chunked SSD scan from a zero state; see `ssd_scan_plain`."""
+    _refuse_sharded_or_meta(x, dt, A, B, C, D)
     _check(x, dt, A, B, C, D, chunk)
     _refuse_autograd(x, dt, A, B, C, D)
     dev = x.device

@@ -50,17 +50,17 @@ class AttentionSpec:
 
 def init_attention(init: Init, spec: AttentionSpec):
     with init.scope("attn"):
-        init.param("wq", (spec.d_model, spec.q_dim))
-        init.param("wk", (spec.d_model, spec.kv_dim))
-        init.param("wv", (spec.d_model, spec.kv_dim))
-        init.param("wo", (spec.q_dim, spec.d_model))
+        init.param("wq", (spec.d_model, spec.q_dim), ("fsdp", "model"))
+        init.param("wk", (spec.d_model, spec.kv_dim), ("fsdp", "model"))
+        init.param("wv", (spec.d_model, spec.kv_dim), ("fsdp", "model"))
+        init.param("wo", (spec.q_dim, spec.d_model), ("model", "fsdp"))
         if spec.qkv_bias:
-            init.param("bq", (spec.q_dim,), init="zeros")
-            init.param("bk", (spec.kv_dim,), init="zeros")
-            init.param("bv", (spec.kv_dim,), init="zeros")
+            init.param("bq", (spec.q_dim,), ("model",), init="zeros")
+            init.param("bk", (spec.kv_dim,), ("model",), init="zeros")
+            init.param("bv", (spec.kv_dim,), ("model",), init="zeros")
         if spec.qk_norm:
-            init.param("q_norm", (spec.head_dim,), init="ones")
-            init.param("k_norm", (spec.head_dim,), init="ones")
+            init.param("q_norm", (spec.head_dim,), (None,), init="ones")
+            init.param("k_norm", (spec.head_dim,), (None,), init="ones")
 
 
 def _project_qkv(params, spec: AttentionSpec, x, positions):

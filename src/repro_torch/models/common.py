@@ -4,8 +4,20 @@ Counterpart of `repro.models.common`.  `Init` takes the place of the
 reference's `Tape`: it draws every parameter from one seeded
 `torch.Generator` with `_init_value`'s distributions (normal with std
 1/sqrt(fan_in), "embed" normal with std 0.02, zeros, ones), into a flat
-dict keyed by the reference's "scope/name" paths.  The port keeps no
-logical sharding axes: one card holds the whole model.
+dict keyed by the reference's "scope/name" paths, and records each
+parameter's logical sharding axes in `Init.specs`, as the reference's
+`Tape` does.  `repro_torch.launch.sharding` resolves them to mesh
+placements.
+
+Logical axis vocabulary (resolved per mesh, with divisibility fallback):
+  'batch'   -> ('pod','data')     activations leading dim
+  'fsdp'    -> ('pod','data')     weight dim sharded FSDP-style
+  'model'   -> 'model'            tensor-parallel weight/activation dim
+  'heads'   -> 'model'            the heads dim of a cache
+  'vocab'   -> 'model'
+  None      -> replicated
+(The reference's 'layers' axis has no counterpart: the port keeps a list
+of per-layer dicts where the reference stacks them.)
 
 Numerics follow the reference: norms in float32, then a cast back to the
 input's dtype; rotary angles in float32.
@@ -14,22 +26,24 @@ input's dtype; rotary angles in float32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 
 class Init:
-    """Declares parameters under "/"-joined scopes and initialises them.
-    With `generator=None` on the meta device, parameters get shapes and
-    dtypes but no storage (the reference's `abstract=True`)."""
+    """Declares parameters under "/"-joined scopes, initialises them and
+    records their logical axes.  With `generator=None` on the meta device,
+    parameters get shapes and dtypes but no storage (the reference's
+    `abstract=True`)."""
 
     def __init__(self, generator: Optional[torch.Generator], dtype=torch.bfloat16, device=None):
         self.generator = generator
         self.device = torch.device(device) if device is not None else generator.device
         self.dtype = dtype
         self.params: Dict[str, torch.Tensor] = {}
+        self.specs: Dict[str, Tuple[Optional[str], ...]] = {}
         self._scope: list[str] = []
 
     def scope(self, name: str) -> "_Scope":
@@ -39,14 +53,19 @@ class Init:
         self,
         name: str,
         shape: Sequence[int],
+        axes: Sequence[Optional[str]],
         init: str = "normal",
         scale: Optional[float] = None,
         dtype=None,
     ) -> torch.Tensor:
         full = "/".join(self._scope + [name])
+        shape = tuple(int(s) for s in shape)
+        axes = tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"{full}: shape {shape} vs axes {axes}")
         if full in self.params:
             raise ValueError(f"duplicate param {full}")
-        shape = tuple(int(s) for s in shape)
+        self.specs[full] = axes
         value = _init_value(self.generator, self.device, shape, init, scale, dtype or self.dtype)
         self.params[full] = value
         return value

@@ -6,12 +6,14 @@ Counterpart of `repro.models.lm`.  One `ModelConfig` describes an
 architecture; `build_model` returns a `Model` with
 
     init(seed, device)                -> params
+    param_axes()                      -> logical sharding axes of params
     forward(params, tokens, vision_embeds=None, enc_embeds=None)
                                       -> (logits, cache, aux)
     loss(params, batch)               -> (total, {"ce", "aux"})
     prefill(params, batch)            -> (last logits, cache)
     decode_step(params, cache, tokens, position) -> (logits, cache)
     grow_cache(cache, target_len)     -> cache with room for target_len
+    cache_axes(cache)                 -> logical sharding axes of a cache
     generate(params, batch, steps)    -> greedy tokens
 
 Parameters are plain dicts of tensors keyed by the reference's paths:
@@ -80,6 +82,9 @@ class ModelConfig:
     mla_decode_impl: str = "naive"  # naive | absorbed
     ssm_impl: str = "kernel"  # kernel | jnp
     param_dtype: Any = torch.bfloat16
+    # callable applied to the residual stream at every norm's input; the
+    # sharding plans (launch/steps.py) pin it to the batch axes there
+    activation_constraint: Any = None
 
     @property
     def resolved_head_dim(self) -> int:
@@ -128,12 +133,14 @@ class ModelConfig:
 
 def _init_norm(init: Init, cfg: ModelConfig, name: str):
     with init.scope(name):
-        init.param("w", (cfg.d_model,), init="zeros" if cfg.norm_offset else "ones")
+        init.param("w", (cfg.d_model,), (None,), init="zeros" if cfg.norm_offset else "ones")
         if cfg.norm == "layernorm":
-            init.param("b", (cfg.d_model,), init="zeros")
+            init.param("b", (cfg.d_model,), (None,), init="zeros")
 
 
 def _apply_norm(params, cfg: ModelConfig, x, name: str):
+    if cfg.activation_constraint is not None:
+        x = cfg.activation_constraint(x)
     if cfg.norm == "layernorm":
         return layer_norm(x, params[f"{name}/w"], params[f"{name}/b"])
     return rms_norm(x, params[f"{name}/w"], offset=1.0 if cfg.norm_offset else 0.0)
@@ -227,42 +234,61 @@ class Model:
     def init(self, seed: int = 0, device=None) -> dict:
         """Random parameters from one generator seeded with `seed`, on
         `device` (None means the card; "meta" allocates nothing)."""
-        cfg = self.config
         dev = resolve_device(device)
         g = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(int(seed))
+        return self._declare(g, dev)[0]
 
-        def block(fn, *args, **kw) -> dict:
+    def param_axes(self) -> dict:
+        """Each parameter's logical sharding axes, in `init`'s structure
+        (`layers` a list per layer), from a declaration on the meta device
+        (nothing allocated).  A per-layer leaf's axes are the reference's
+        without its leading "layers" entry: the port does not stack layers."""
+        return self._declare(None, torch.device("meta"))[1]
+
+    def _declare(self, g, dev) -> tuple[dict, dict]:
+        """(params, axes) of every parameter, drawn from `g` on `dev`."""
+        cfg = self.config
+        params: dict = {}
+        axes: dict = {}
+
+        def block(fn, *args, **kw) -> tuple[dict, dict]:
             init = Init(g, dtype=cfg.param_dtype, device=dev)
             fn(init, *args, **kw)
-            return init.params
+            return init.params, init.specs
+
+        def put(key, blocks):
+            if isinstance(blocks, list):
+                params[key], axes[key] = [b[0] for b in blocks], [b[1] for b in blocks]
+            else:
+                params[key], axes[key] = blocks
 
         def top(init: Init):
-            init.param("embed", (cfg.padded_vocab, cfg.d_model), init="embed")
-            init.param("unembed", (cfg.d_model, cfg.padded_vocab))
+            init.param("embed", (cfg.padded_vocab, cfg.d_model), ("model", "fsdp"), init="embed")
+            init.param("unembed", (cfg.d_model, cfg.padded_vocab), ("fsdp", "model"))
             _init_norm(init, cfg, "final_norm")
 
-        params = {"top": block(top)}
+        put("top", block(top))
         if cfg.family in ("dense", "moe", "vlm"):
             layer_fn = _init_mla_layer if cfg.mla is not None else _init_transformer_layer
-            params["layers"] = [block(layer_fn, cfg) for _ in range(cfg.n_layers)]
+            put("layers", [block(layer_fn, cfg) for _ in range(cfg.n_layers)])
         elif cfg.family in ("ssm", "hybrid"):
-            params["layers"] = [block(_init_ssm_layer, cfg) for _ in range(cfg.n_layers)]
+            put("layers", [block(_init_ssm_layer, cfg) for _ in range(cfg.n_layers)])
             if cfg.family == "hybrid":
-                params["shared_attn"] = block(_init_transformer_layer, cfg.replace(moe=None))
+                put("shared_attn", block(_init_transformer_layer, cfg.replace(moe=None)))
         elif cfg.family == "encdec":
             plain = cfg.replace(moe=None)
-            params["enc_layers"] = [block(_init_transformer_layer, plain) for _ in range(cfg.n_enc_layers)]
-            params["layers"] = [block(_init_transformer_layer, plain, cross=True) for _ in range(cfg.n_layers)]
+            put("enc_layers", [block(_init_transformer_layer, plain) for _ in range(cfg.n_enc_layers)])
+            put("layers", [block(_init_transformer_layer, plain, cross=True) for _ in range(cfg.n_layers)])
 
             def extra(init: Init):
-                init.param("enc_pos", (cfg.enc_positions, cfg.d_model), init="embed")
-                init.param("dec_pos", (65536, cfg.d_model), init="embed")
+                init.param("enc_pos", (cfg.enc_positions, cfg.d_model), (None, "fsdp"), init="embed")
+                init.param("dec_pos", (65536, cfg.d_model), (None, "fsdp"), init="embed")
                 _init_norm(init, cfg, "enc_final_norm")
 
-            params["extra"] = block(extra)
+            put("extra", block(extra))
         else:
             raise ValueError(cfg.family)
-        return params
+        return params, axes
 
     # ------------------------------------------------------------ embedding
     def _embed(self, params, tokens):
@@ -385,9 +411,12 @@ class Model:
         logits = logits.float()
         mask = (labels >= 0).float()
         safe = torch.clamp(labels, min=0).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-        ce = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        # the gold logit stays 3-D until `lse - gold`: with the vocabulary
+        # sharded (DTensor), the gather gives a partial sum over the shards,
+        # which that subtraction reduces; indexing it first fails
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, -1, safe[..., None])
+        ce = torch.sum((lse - gold)[..., 0] * mask) / torch.clamp(torch.sum(mask), min=1.0)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -446,6 +475,28 @@ class Model:
                 h = h + f
                 new_self.append((nk, nv))
             return self._logits(params, h)[:, 0], (new_self, cross_kvs)
+        raise ValueError(cfg.family)
+
+    def cache_axes(self, cache):
+        """Logical sharding axes in the cache's structure (a list per layer
+        of (k, v), or of the SSM's (conv, state), and so on by family), the
+        reference's `Model.cache_axes` without its leading "layers" entry."""
+        cfg = self.config
+        kv = ("batch", None, "heads", None)
+        ssm = (("batch", None, "model"), ("batch", "heads", None, None))
+        if cfg.family in ("dense", "moe", "vlm"):
+            if cfg.mla is not None:
+                lat = ("batch", None, None)
+                return [(lat, lat) for _ in cache]
+            return [(kv, kv) for _ in cache]
+        if cfg.family == "ssm":
+            return [ssm for _ in cache]
+        if cfg.family == "hybrid":
+            ssm_states, attn_caches = cache
+            return [[ssm for _ in seg] for seg in ssm_states], [(kv, kv) for _ in attn_caches]
+        if cfg.family == "encdec":
+            self_kv, cross_kvs = cache
+            return [(kv, kv) for _ in self_kv], [(kv, kv) for _ in cross_kvs]
         raise ValueError(cfg.family)
 
     def grow_cache(self, cache, target_len: int):

@@ -51,13 +51,13 @@ class MLASpec:
 def init_mla(init: Init, spec: MLASpec):
     H = spec.n_heads
     with init.scope("mla"):
-        init.param("w_dq", (spec.d_model, spec.q_lora))
-        init.param("q_norm", (spec.q_lora,), init="ones")
-        init.param("w_uq", (spec.q_lora, H * spec.qk_dim))
-        init.param("w_dkv", (spec.d_model, spec.kv_lora + spec.d_rope))
-        init.param("kv_norm", (spec.kv_lora,), init="ones")
-        init.param("w_ukv", (spec.kv_lora, H * (spec.d_nope + spec.d_v)))
-        init.param("w_o", (H * spec.d_v, spec.d_model))
+        init.param("w_dq", (spec.d_model, spec.q_lora), ("fsdp", None))
+        init.param("q_norm", (spec.q_lora,), (None,), init="ones")
+        init.param("w_uq", (spec.q_lora, H * spec.qk_dim), ("fsdp", "model"))
+        init.param("w_dkv", (spec.d_model, spec.kv_lora + spec.d_rope), ("fsdp", None))
+        init.param("kv_norm", (spec.kv_lora,), (None,), init="ones")
+        init.param("w_ukv", (spec.kv_lora, H * (spec.d_nope + spec.d_v)), ("fsdp", "model"))
+        init.param("w_o", (H * spec.d_v, spec.d_model), ("model", "fsdp"))
 
 
 def _q_proj(params, spec: MLASpec, x, positions):

@@ -13,9 +13,9 @@ from .common import ACTIVATIONS, Init
 
 def init_gated_mlp(init: Init, d_model: int, d_ff: int, name: str = "mlp"):
     with init.scope(name):
-        init.param("w_gate", (d_model, d_ff))
-        init.param("w_up", (d_model, d_ff))
-        init.param("w_down", (d_ff, d_model))
+        init.param("w_gate", (d_model, d_ff), ("fsdp", "model"))
+        init.param("w_up", (d_model, d_ff), ("fsdp", "model"))
+        init.param("w_down", (d_ff, d_model), ("model", "fsdp"))
 
 
 def gated_mlp(params, x, act: str = "silu", name: str = "mlp"):
@@ -27,11 +27,11 @@ def gated_mlp(params, x, act: str = "silu", name: str = "mlp"):
 
 def init_plain_mlp(init: Init, d_model: int, d_ff: int, bias: bool = True, name: str = "mlp"):
     with init.scope(name):
-        init.param("w_in", (d_model, d_ff))
-        init.param("w_out", (d_ff, d_model))
+        init.param("w_in", (d_model, d_ff), ("fsdp", "model"))
+        init.param("w_out", (d_ff, d_model), ("model", "fsdp"))
         if bias:
-            init.param("b_in", (d_ff,), init="zeros")
-            init.param("b_out", (d_model,), init="zeros")
+            init.param("b_in", (d_ff,), ("model",), init="zeros")
+            init.param("b_out", (d_model,), (None,), init="zeros")
 
 
 def plain_mlp(params, x, act: str = "gelu", name: str = "mlp"):

@@ -45,14 +45,14 @@ class MoESpec:
 
 def init_moe(init: Init, spec: MoESpec, name: str = "moe"):
     with init.scope(name):
-        init.param("router", (spec.d_model, spec.n_experts), dtype=torch.float32)
-        init.param("w_gate", (spec.n_experts, spec.d_model, spec.d_ff))
-        init.param("w_up", (spec.n_experts, spec.d_model, spec.d_ff))
-        init.param("w_down", (spec.n_experts, spec.d_ff, spec.d_model))
+        init.param("router", (spec.d_model, spec.n_experts), ("fsdp", None), dtype=torch.float32)
+        init.param("w_gate", (spec.n_experts, spec.d_model, spec.d_ff), ("model", "fsdp", None))
+        init.param("w_up", (spec.n_experts, spec.d_model, spec.d_ff), ("model", "fsdp", None))
+        init.param("w_down", (spec.n_experts, spec.d_ff, spec.d_model), ("model", None, "fsdp"))
         if spec.n_shared:
-            init.param("shared_gate", (spec.d_model, spec.n_shared * spec.d_ff))
-            init.param("shared_up", (spec.d_model, spec.n_shared * spec.d_ff))
-            init.param("shared_down", (spec.n_shared * spec.d_ff, spec.d_model))
+            init.param("shared_gate", (spec.d_model, spec.n_shared * spec.d_ff), ("fsdp", "model"))
+            init.param("shared_up", (spec.d_model, spec.n_shared * spec.d_ff), ("fsdp", "model"))
+            init.param("shared_down", (spec.n_shared * spec.d_ff, spec.d_model), ("model", "fsdp"))
 
 
 def _router(params, spec: MoESpec, x, name: str):
@@ -148,7 +148,7 @@ def _gather_dispatch(params, spec: MoESpec, x, weights, ids, name: str):
     e_idx = torch.where(keep, ids_f, E)
     p_idx = torch.where(keep, pos, 0)
     buf = torch.zeros((E + 1, cap, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((e_idx, p_idx), xf[tok_f], accumulate=True)
+    buf = buf.index_put((e_idx, p_idx), xf[tok_f], accumulate=True)  # out of place: DTensor takes it
     ye = _expert_ffn(params, spec, buf[:E], name)  # (E, C, d)
 
     # gather back with the combine weights; a token's k rows are contiguous

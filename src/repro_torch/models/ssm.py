@@ -53,14 +53,14 @@ class SSMSpec:
 
 def init_ssm(init: Init, spec: SSMSpec, name: str = "ssm"):
     with init.scope(name):
-        init.param("w_in", (spec.d_model, spec.in_dim))
-        init.param("conv_w", (spec.d_conv, spec.conv_dim))
-        init.param("conv_b", (spec.conv_dim,), init="zeros")
-        init.param("A_log", (spec.n_heads,), init="zeros", dtype=torch.float32)
-        init.param("dt_bias", (spec.n_heads,), init="zeros", dtype=torch.float32)
-        init.param("D", (spec.n_heads,), init="ones", dtype=torch.float32)
-        init.param("out_norm", (spec.d_inner,), init="ones")
-        init.param("w_out", (spec.d_inner, spec.d_model))
+        init.param("w_in", (spec.d_model, spec.in_dim), ("fsdp", "model"))
+        init.param("conv_w", (spec.d_conv, spec.conv_dim), (None, "model"))
+        init.param("conv_b", (spec.conv_dim,), ("model",), init="zeros")
+        init.param("A_log", (spec.n_heads,), ("model",), init="zeros", dtype=torch.float32)
+        init.param("dt_bias", (spec.n_heads,), ("model",), init="zeros", dtype=torch.float32)
+        init.param("D", (spec.n_heads,), ("model",), init="ones", dtype=torch.float32)
+        init.param("out_norm", (spec.d_inner,), ("model",), init="ones")
+        init.param("w_out", (spec.d_inner, spec.d_model), ("model", "fsdp"))
 
 
 def _split_in(spec: SSMSpec, zxbcdt):

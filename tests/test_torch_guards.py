@@ -248,3 +248,45 @@ def test_training_entry_points_default_to_the_card_and_never_fall_back(monkeypat
     trainer = StragglerAwareTrainer(SimCluster(8, ShiftedExp(1.0, 1.0)), None, None, {}, TrainerConfig(),
                                     device="cpu")
     assert trainer.device.type == "cpu" and trainer.controller.device.type == "cpu"
+
+
+def test_launch_modules_import_without_jax_or_a_process_group():
+    """Every module of `repro_torch.launch` (the dry-run and the roofline
+    included) imports without jax or the JAX package, and starts no process
+    group at import."""
+    names = [m for m in MODULES if m.startswith("repro_torch.launch.")]
+    assert {f"repro_torch.launch.{m}" for m in ("mesh", "sharding", "dryrun", "hlo_profile", "roofline", "steps")} <= set(names)
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_flash_and_ssd_wrappers_refuse_dtensors_and_meta_tensors():
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch.mesh import fake_world
+
+    q = torch.randn(1, 8, 2, 64)
+    Bt, S, H, P, G, N = 1, 10, 4, 8, 2, 4
+    ssd = (torch.randn(Bt, S, H, P), torch.rand(Bt, S, H), -torch.rand(H), torch.randn(Bt, S, G, N),
+           torch.randn(Bt, S, G, N), torch.ones(H))
+    for route, call, args in (('attn_impl="chunked"', ops.flash_attention, (q, q, q)),
+                              ('ssm_impl="jnp"', ops.ssd_scan, ssd)):
+        with pytest.raises(ValueError, match=f"got a meta tensor; shard or trace through {route}"):
+            call(*(t.to("meta") for t in args))
+        with fake_world(1):
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+            dargs = [distribute_tensor(t, mesh, [Replicate()]) for t in args]
+            with pytest.raises(ValueError, match=f"got a DTensor; shard or trace through {route}"):
+                call(*dargs)
+        assert not torch.distributed.is_initialized()

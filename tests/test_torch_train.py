@@ -254,7 +254,8 @@ def test_input_specs_and_abstract_state_match_the_reference():
         for part, stacked in zip(got["cache"][0], want["cache"]):
             assert (n_layers, *part.shape) == stacked.shape and part.device.type == "meta"
         assert tuple(got["tokens"].shape) == (3,) and got["position"].shape == ()
-    state = steps.abstract_state(get_config("qwen2-0.5b"))
+    state, state_axes = steps.abstract_state(get_config("qwen2-0.5b"))
+    assert state_axes["opt"]["m"] is state_axes["params"] and state_axes["step"] == ()
     leaves = tree.leaves(state)
     assert all(t.device.type == "meta" for t in leaves)
     n = get_config("qwen2-0.5b").param_count()
