@@ -134,7 +134,7 @@ class VectorFleetResult:
                 per_trial.std(correction=0) / math.sqrt(max(m - 1, 1)),
             ]
         ).cpu().numpy()
-        pcts = np.percentile(self.sojourn.cpu().numpy(), (50.0, 99.0, 99.9))
+        pcts = exact_percentiles(self.sojourn.reshape(1, -1))[:, 0]
         out = dict(zip(_SUMMARY_KEYS, (float(v) for v in (*vals[:5], *pcts, vals[5]))))
         if self.class_utilization is not None and self.class_names is not None:
             per_class = self.class_utilization.mean(dim=0).cpu().numpy()
@@ -625,17 +625,34 @@ def _hist_spec(tail) -> Optional[HistSpec]:
     raise ValueError(f'tail must be "exact", "hist", or a HistSpec, got {tail!r}')
 
 
+def exact_percentiles(rows, qs=(50.0, 99.0, 99.9)) -> np.ndarray:
+    """`np.percentile`'s linear rule over each row of `rows` (rows, N):
+    the rows sorted where they lie, the two order statistics around
+    q·(N-1) brought to the host and interpolated there with numpy's own
+    arithmetic; the reference computes its percentile keys on the device
+    too.  Returns (len(qs), rows)."""
+    n = rows.shape[-1]
+    pos = np.asarray(qs, dtype=np.float64) / 100.0 * (n - 1)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, n - 1)
+    idx = torch.as_tensor(np.concatenate([lo, hi]), device=rows.device)
+    picked = torch.sort(rows, dim=-1).values[:, idx].cpu().numpy().T
+    a, b, t = picked[: len(qs)], picked[len(qs):], (pos - lo)[:, None]
+    diff = b - a  # in the rows' dtype, then float64 with t: numpy's `_lerp`
+    return np.where(t >= 0.5, b - diff * (1.0 - t), a + diff * t)
+
+
 def _tail_keys(soj, cost, hist):
     """The percentile keys of every cell from its (cells, m, J) sojourns and
-    costs: (pcts (3, cells), cost_pcts, evt rows).  Exact: `np.percentile`
-    over the sojourns brought to the host (cost_pcts and evt None).  Hist:
+    costs: (pcts (3, cells), cost_pcts, evt rows).  Exact: `np.percentile`'s
+    rule over each cell's sojourns (`exact_percentiles`; cost_pcts and evt
+    None).  Hist:
     both are counted into γ-bucket histograms on the device and only
     (n_bins + 3) numbers per cell reach the host; the sketches rebuilt there
     give the quantiles and the EVT tail keys (`obs.evtail.evt_keys`)."""
     n_cells = soj.shape[0]
     if hist is None:
-        pcts = np.percentile(soj.cpu().numpy().reshape(n_cells, -1), (50.0, 99.0, 99.9), axis=1)
-        return pcts, None, None
+        return exact_percentiles(soj.reshape(n_cells, -1)), None, None
     s_counts, s_agg, c_counts, c_agg = (
         z.cpu().numpy() for pair in (cell_histograms(soj, hist), cell_histograms(cost, hist)) for z in pair
     )

@@ -29,6 +29,11 @@ fake mode refuses.)  Its records keep the reference's keys:
              issues, by the reference's names (all-gather, all-reduce,
              reduce-scatter, all-to-all; and broadcast)
   bytes_by_op   result bytes by aten op, the 12 largest
+  largest_output   the largest single result of an op but a view: its
+             bytes, op and local shape
+  global_logits_ops   for a train cell, the ops whose result has the
+             global logits' shape (batch, seq, padded vocabulary): a rank
+             that builds one holds every rank's logits
   bytes_adjusted   result bytes of every op but views (the roofline's
              memory term)
 
@@ -100,7 +105,7 @@ class LocalCost(TorchDispatchMode):
     is what DTensor issues for its own ops.  A DTensor op is returned
     `NotImplemented`, so DTensor runs it and the mode sees its local ops."""
 
-    def __init__(self, live_args=()):
+    def __init__(self, live_args=(), watch_shape=None):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -110,6 +115,9 @@ class LocalCost(TorchDispatchMode):
         self.bytes_by_op: dict = defaultdict(int)
         self.collectives: dict = defaultdict(int)
         self.n_collectives = 0
+        self.largest = dict(bytes=0, op=None, shape=None)
+        self.watch_shape = None if watch_shape is None else tuple(watch_shape)
+        self.watched: dict = defaultdict(int)  # op -> results of watch_shape
         self.live = 0
         self.peak = 0
         self._storages: dict = {}  # storage id -> [bytes, tensors alive]
@@ -158,6 +166,11 @@ class LocalCost(TorchDispatchMode):
         if not (func.is_view or name in ("detach", "alias", "wait_tensor")):
             result = sum(_nbytes(t) for t in outs)
             self.bytes_by_op[name] += result
+            for t in outs:
+                if _nbytes(t) > self.largest["bytes"]:
+                    self.largest = dict(bytes=_nbytes(t), op=name, shape=list(t.shape))
+                if tuple(t.shape) == self.watch_shape:
+                    self.watched[name] += 1
             self.bytes_accessed += result + sum(_nbytes(t) for t in ins)
         for t in outs:
             self._track(t)
@@ -184,7 +197,8 @@ def trace_cell(cfg, shape: ShapeSpec, mesh, remat: str = "none", rules=None, pin
     args = shd.distribute(inputs, in_pl, mesh)
     t_lower = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with LocalCost(_local_tensors(args)) as cost:
+    watch = (shape.global_batch, shape.seq_len, cfg.padded_vocab) if shape.kind == "train" else None
+    with LocalCost(_local_tensors(args), watch_shape=watch) as cost:
         out = fn(*args)
     t_trace = time.perf_counter() - t0
     arg_bytes = shd.local_bytes(args)
@@ -202,6 +216,8 @@ def trace_cell(cfg, shape: ShapeSpec, mesh, remat: str = "none", rules=None, pin
         n_collectives=cost.n_collectives,
         bytes_by_op=dict(top),
         bytes_adjusted=int(adjusted),
+        largest_output=cost.largest,
+        global_logits_ops=dict(cost.watched),
     )
 
 

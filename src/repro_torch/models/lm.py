@@ -411,11 +411,14 @@ class Model:
         logits = logits.float()
         mask = (labels >= 0).float()
         safe = torch.clamp(labels, min=0).long()
-        # the gold logit stays 3-D until `lse - gold`: with the vocabulary
-        # sharded (DTensor), the gather gives a partial sum over the shards,
-        # which that subtraction reduces; indexing it first fails
+        # the gold logit is a one-hot sum over the vocabulary, placed as the
+        # logits are: with the vocabulary sharded (DTensor), each rank sums
+        # its own shard, `lse - gold` reduces the partial sums, and the
+        # backward stays on the shard (a gather's backward builds a zero
+        # tensor of the global logits' shape).  On plain tensors the sum
+        # adds zeros to the gold logit, so it equals the gather bit for bit
         lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-        gold = torch.gather(logits, -1, safe[..., None])
+        gold = torch.where(_vocab_ids(logits) == safe[..., None], logits, 0.0).sum(dim=-1, keepdim=True)
         ce = torch.sum((lse - gold)[..., 0] * mask) / torch.clamp(torch.sum(mask), min=1.0)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
@@ -540,6 +543,25 @@ class Model:
             logits, cache = self.decode_step(params, cache, tok, prompt_len + i)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return torch.stack(toks, dim=1)
+
+
+def _vocab_ids(logits):
+    """Each logit's index in the vocabulary, broadcastable against `logits`.
+    On DTensor logits it is a DTensor of their shape and placements whose
+    local shard is a view of that shard's own ids, so that comparing it
+    with the labels keeps the one-hot on the logits' shards."""
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        if isinstance(logits, DTensor):
+            mesh = logits.device_mesh
+            placements = [Replicate() if p.is_partial() else p for p in logits.placements]
+            shape, offset = compute_local_shape_and_global_offset(logits.shape, mesh, placements)
+            local = torch.arange(offset[-1], offset[-1] + shape[-1], device=logits.to_local().device)
+            return DTensor.from_local(local.expand(shape), mesh, placements, shape=logits.shape,
+                                      stride=logits.stride())
+    return torch.arange(logits.shape[-1], device=logits.device)
 
 
 def build_model(config: ModelConfig) -> Model:

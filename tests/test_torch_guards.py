@@ -40,7 +40,9 @@ def test_every_port_module_imports_without_jax_or_repro():
 
 def test_no_source_line_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)")
-    files = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
+    files = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py",
+             *sorted((ROOT / "examples").glob("torch_*.py"))]
+    assert len(files) > 60 and ROOT / "examples" / "torch_dag_pipeline.py" in files
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if pattern.match(line)]
     assert not hits
@@ -88,6 +90,17 @@ def test_dag_and_controller_entry_points_default_to_the_card_and_never_fall_back
     assert len(rep.jobs) == 5
     assert dag.dag_frontier(two, [two.policies()], (0.1,), 20, m_trials=2, device="cpu")
     assert FleetPolicyController(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("example", ["torch_fleet_frontier.py", "torch_dag_pipeline.py"])
+def test_examples_default_to_the_card_and_never_fall_back(example):
+    """Without --device an example wants the card: on a machine without
+    one it exits with the port's error before any work."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / example), "--quick"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr, out.stderr[-2000:]
+    assert not out.stdout
 
 
 def test_frontier_hist_tail_is_ported():

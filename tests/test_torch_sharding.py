@@ -217,9 +217,10 @@ def test_init_param_checks_its_axes():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_repairs_keep_the_unsharded_values_bit_for_bit(monkeypatch, dtype):
-    """`Model.loss` reduces the gold logit before indexing it, and the MoE
-    dispatch accumulates out of place (both for DTensor); on plain tensors
-    the values are those of the forms they replaced, bit for bit."""
+    """`Model.loss` takes the gold logit as a one-hot sum that stays on the
+    vocabulary's shards, and the MoE dispatch accumulates out of place
+    (both for DTensor); on plain tensors the values are those of the forms
+    they replaced, bit for bit, and so are the loss's gradients."""
     from repro_torch.data import SyntheticTokenPipeline
 
     cfg = get_reduced("moonshot-v1-16b-a3b").replace(param_dtype=dtype, attn_impl="chunked")
@@ -234,6 +235,18 @@ def test_repairs_keep_the_unsharded_values_bit_for_bit(monkeypatch, dtype):
     gold = torch.gather(lg, -1, safe[..., None])[..., 0]
     ce = torch.sum((torch.logsumexp(lg, dim=-1) - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
     assert torch.equal(metrics["ce"], ce)
+    # the gather form, the gold logit kept 3-D until `lse - gold`: the same
+    # values and the same gradient with respect to the logits
+    lg = logits.detach().float().requires_grad_()
+    lse = torch.logsumexp(lg, dim=-1, keepdim=True)
+    ce = torch.sum((lse - torch.gather(lg, -1, safe[..., None]))[..., 0] * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    (want,) = torch.autograd.grad(ce, lg)
+    assert torch.equal(metrics["ce"], ce.detach())
+    lg2 = logits.detach().float().requires_grad_()
+    monkeypatch.setattr(model, "forward", lambda *a, **k: (lg2, None, 0.0))
+    (got,) = torch.autograd.grad(model.loss(params, batch)[1]["ce"], lg2)
+    assert torch.equal(got, want)
+    monkeypatch.undo()
     # the dispatch's form before: in-place accumulation into the zero buffer
     monkeypatch.setattr(torch.Tensor, "index_put", lambda self, *a, **k: self.clone().index_put_(*a, **k))
     assert torch.equal(model.forward(params, batch["tokens"])[0], logits)
@@ -306,6 +319,10 @@ def test_mini_dryrun_on_the_test_meshes(spawned, arch, multi):
     assert rec["cost"]["flops"] * 8 >= rec["unsharded_flops"] > 0
     assert sum(rec["collectives"].values()) > 0 and rec["n_collectives"] > 0
     assert rec["memory"]["peak_memory_in_bytes"] >= rec["memory"]["argument_size_in_bytes"] > 0
+    # no rank builds a tensor of the global logits' shape (8, 32, 512): the
+    # loss's backward stays on the vocabulary's shards
+    assert rec["global_logits_ops"] == {}
+    assert 0 < rec["largest_output"]["bytes"] <= rec["memory"]["peak_memory_in_bytes"]
     shape = shapes.ShapeSpec("t", 32, 8, "train")
     row = roofline.analyze_cell(dict(rec, arch=arch, shape="t", mesh="test"), shape)
     assert row["dominant"] in ("compute", "memory", "collective") and row["useful_ratio"] > 0
