@@ -439,6 +439,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
     return kBf16 ? launch_bf16<d>(q, k, v, o, B, Sq, Sk, H, scale, causal, st) \
                  : launch_f32<d>(q, k, v, o, B, Sq, Sk, H, scale, causal, st);
   switch (D) {
+    FLASH_CASE(16)
     FLASH_CASE(64)
     FLASH_CASE(80)
     FLASH_CASE(128)

@@ -629,8 +629,10 @@ def exact_percentiles(rows, qs=(50.0, 99.0, 99.9)) -> np.ndarray:
     """`np.percentile`'s linear rule over each row of `rows` (rows, N):
     the rows sorted where they lie, the two order statistics around
     q·(N-1) brought to the host and interpolated there with numpy's own
-    arithmetic; the reference computes its percentile keys on the device
-    too.  Returns (len(qs), rows)."""
+    arithmetic, so the keys equal `np.percentile`'s bit for bit.  The
+    reference brings every sojourn to the host and calls `np.percentile`
+    there; sorting where the rows lie moves two numbers a key instead.
+    Returns (len(qs), rows)."""
     n = rows.shape[-1]
     pos = np.asarray(qs, dtype=np.float64) / 100.0 * (n - 1)
     lo = np.floor(pos).astype(np.int64)
@@ -697,9 +699,10 @@ def _eval_cells(
     (default: as many as `CELL_CHUNK_BYTES` allows); it changes no result.
     `pad_cells` is the reference's compile-sharing pad and is ignored: only
     the real cells are evaluated.  `tail="exact"` computes the percentile
-    keys host-side with `np.percentile`; `tail="hist"` (or a `HistSpec`)
-    from histograms counted on the device, and adds the cost_p* and evt_*
-    keys.  With a recorder enabled (`obs.enable()`), each call records a
+    keys from a sort on the rows' device (`exact_percentiles`, bit-equal
+    to the reference's host-side `np.percentile`); `tail="hist"` (or a
+    `HistSpec`) from histograms counted on the device, and adds the
+    cost_p* and evt_* keys.  With a recorder enabled (`obs.enable()`), each call records a
     `frontier_dispatch` span and adds its cells to the `frontier.cells`
     counter; the reference's `obs.retrace` counter has no counterpart in
     eager PyTorch (ROADMAP Queue 1 item 6)."""

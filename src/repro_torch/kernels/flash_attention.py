@@ -10,8 +10,9 @@ softmax in float32, and the output is stored in the inputs' type.
 The kernels (`csrc/flash_attention.cu`) read the (B, S, H, D) layout by
 strides and mask ragged ends themselves, so no transposed or padded copies
 are made; with `causal` the loop over key tiles stops at the diagonal.
-Head dims 64, 80, 128 and 256 are compiled.  Bfloat16 inputs (what serving
-runs) take a tensor-core kernel: bf16 products with float32 accumulators,
+Head dims 16 (the reduced configs'), 64, 80, 128 and 256 are compiled.
+Bfloat16 inputs (what serving runs) take a tensor-core kernel: bf16
+products with float32 accumulators,
 K and V tiles copied asynchronously, P rounded to bf16 before P·V (as
 FlashAttention-2/3 do; the TPU kernel keeps P in float32), heaviest query
 tiles first.  Float32 inputs take a kernel with float32 products on the
@@ -32,7 +33,7 @@ import torch
 
 NEG_INF = -(2.0**30)
 #: head dims the kernel is compiled for
-HEAD_DIMS = (64, 80, 128, 256)
+HEAD_DIMS = (16, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -36,6 +36,9 @@ fake mode refuses.)  Its records keep the reference's keys:
              that builds one holds every rank's logits
   bytes_adjusted   result bytes of every op but views (the roofline's
              memory term)
+  collective_shapes   [collective, mesh dim, input shape, result shape,
+             calls] for each distinct collective
+  bmm_shapes   [shape a, shape b, calls] for each distinct local `bmm`
 
 The counts come from a dispatch mode below DTensor (`LocalCost`): it
 lets DTensor's ops through and counts the ops on local tensors that
@@ -105,7 +108,7 @@ class LocalCost(TorchDispatchMode):
     is what DTensor issues for its own ops.  A DTensor op is returned
     `NotImplemented`, so DTensor runs it and the mode sees its local ops."""
 
-    def __init__(self, live_args=(), watch_shape=None):
+    def __init__(self, live_args=(), watch_shape=None, axes=None):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -118,6 +121,9 @@ class LocalCost(TorchDispatchMode):
         self.largest = dict(bytes=0, op=None, shape=None)
         self.watch_shape = None if watch_shape is None else tuple(watch_shape)
         self.watched: dict = defaultdict(int)  # op -> results of watch_shape
+        self.axes = axes or {}  # process group name -> mesh dim name
+        self.collective_shapes: dict = defaultdict(int)  # (collective, axis, in, out) -> calls
+        self.bmm_shapes: dict = defaultdict(int)  # (shape a, shape b) -> calls
         self.live = 0
         self.peak = 0
         self._storages: dict = {}  # storage id -> [bytes, tensors alive]
@@ -160,6 +166,11 @@ class LocalCost(TorchDispatchMode):
         if func.namespace == "_c10d_functional" and name in COLLECTIVE_NAMES:
             self.collectives[COLLECTIVE_NAMES[name]] += sum(_nbytes(t) for t in ins)
             self.n_collectives += 1
+            group = next((a for a in reversed(args) if isinstance(a, str)), None)
+            self.collective_shapes[(COLLECTIVE_NAMES[name], self.axes.get(group, group),
+                                    tuple(ins[0].shape), tuple(outs[0].shape))] += 1
+        if name == "bmm":
+            self.bmm_shapes[tuple(tuple(t.shape) for t in ins[:2])] += 1
         formula = self._flop_formulas.get(func.overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
@@ -198,7 +209,9 @@ def trace_cell(cfg, shape: ShapeSpec, mesh, remat: str = "none", rules=None, pin
     t_lower = time.perf_counter() - t0
     t0 = time.perf_counter()
     watch = (shape.global_batch, shape.seq_len, cfg.padded_vocab) if shape.kind == "train" else None
-    with LocalCost(_local_tensors(args), watch_shape=watch) as cost:
+    axes = {m.get_group(i).group_name: dim for m in (mesh, shd.dtensor_mesh(mesh))
+            for i, dim in enumerate(m.mesh_dim_names)}
+    with LocalCost(_local_tensors(args), watch_shape=watch, axes=axes) as cost:
         out = fn(*args)
     t_trace = time.perf_counter() - t0
     arg_bytes = shd.local_bytes(args)
@@ -218,6 +231,8 @@ def trace_cell(cfg, shape: ShapeSpec, mesh, remat: str = "none", rules=None, pin
         bytes_adjusted=int(adjusted),
         largest_output=cost.largest,
         global_logits_ops=dict(cost.watched),
+        collective_shapes=[[*k, n] for k, n in cost.collective_shapes.items()],
+        bmm_shapes=[[*k, n] for k, n in cost.bmm_shapes.items()],
     )
 
 

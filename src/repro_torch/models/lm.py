@@ -417,7 +417,7 @@ class Model:
         # backward stays on the shard (a gather's backward builds a zero
         # tensor of the global logits' shape).  On plain tensors the sum
         # adds zeros to the gold logit, so it equals the gather bit for bit
-        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        lse = _logsumexp(logits)
         gold = torch.where(_vocab_ids(logits) == safe[..., None], logits, 0.0).sum(dim=-1, keepdim=True)
         ce = torch.sum((lse - gold)[..., 0] * mask) / torch.clamp(torch.sum(mask), min=1.0)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
@@ -543,6 +543,32 @@ class Model:
             logits, cache = self.decode_step(params, cache, tok, prompt_len + i)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return torch.stack(toks, dim=1)
+
+
+def _logsumexp(logits):
+    """logsumexp over the last (vocabulary) dim, keepdim.  On DTensor
+    logits whose vocabulary is sharded it is the stable form reduced
+    across the shards: a max (detached: the gradient stays exact) and a
+    sum of exps, each all-reduced at (B, S) size and replicated over the
+    vocabulary's mesh dims, where `torch.logsumexp` would all-gather the
+    whole vocabulary onto every rank.  (Left partial, the sum is
+    reduce-scattered over the batch, and the backward then moves the
+    exps' shards onto it.)  On plain tensors, and where no mesh dim of
+    more than one rank shards the vocabulary (nothing to gather; the
+    stable form would round differently), `torch.logsumexp`."""
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        if isinstance(logits, DTensor) and any(
+                isinstance(p, Shard) and p.dim == logits.ndim - 1 and logits.device_mesh.size(i) > 1
+                for i, p in enumerate(logits.placements)):
+
+            def reduced(x):
+                return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+
+            m = reduced(logits.detach().amax(dim=-1, keepdim=True))
+            return m + torch.log(reduced(torch.exp(logits - m).sum(dim=-1, keepdim=True)))
+    return torch.logsumexp(logits, dim=-1, keepdim=True)
 
 
 def _vocab_ids(logits):

@@ -132,6 +132,25 @@ def _slots(ids_f, n_experts: int, cap: int):
     return pos, pos < cap
 
 
+def _expert_placements(buf, w):
+    """The placements of the dispatch buffer `buf` (E, C, d) for the
+    expert products, or None unless both it and the expert weight `w` are
+    DTensors: the weight's shards of the expert dim, and the capacity dim
+    split over every other mesh dim (the data axes), so that a rank runs
+    its experts on its share of the slots.  The buffer is an `index_put`
+    into a replicated zero tensor (and in the backward the combine's
+    gradient one sharded on d); left as they are, DTensor shards the
+    products' contraction dim instead and runs every expert, on every
+    slot, on every rank."""
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(buf, DTensor) and isinstance(w, DTensor)):
+        return None
+    return [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Shard(1) for p in w.placements]
+
+
 def _gather_dispatch(params, spec: MoESpec, x, weights, ids, name: str):
     """Capacity-bounded scatter -> batched expert products -> gather."""
     B, S, d = x.shape
@@ -149,7 +168,13 @@ def _gather_dispatch(params, spec: MoESpec, x, weights, ids, name: str):
     p_idx = torch.where(keep, pos, 0)
     buf = torch.zeros((E + 1, cap, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((e_idx, p_idx), xf[tok_f], accumulate=True)  # out of place: DTensor takes it
-    ye = _expert_ffn(params, spec, buf[:E], name)  # (E, C, d)
+    pl = _expert_placements(buf, params[f"{name}/w_gate"])
+    xe = buf[:E] if pl is None else buf[:E].redistribute(buf.device_mesh, pl)
+    ye = _expert_ffn(params, spec, xe, name)  # (E, C, d)
+    if pl is not None:  # the combine reads every slot; its gradient comes back onto the shards
+        from torch.distributed.tensor import Replicate
+
+        ye = ye.redistribute(ye.device_mesh, [Replicate()] * len(pl))
 
     # gather back with the combine weights; a token's k rows are contiguous
     y_tok = ye[torch.where(keep, ids_f, 0), p_idx]  # (T·k, d)

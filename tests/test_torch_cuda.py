@@ -231,7 +231,8 @@ def test_frontier_on_card_agrees_with_the_cpu_path():
 
 
 # (B, S, H, D, causal, dtype): tests/test_kernels.py's FLASH_CASES, then the
-# shape of one Zamba2-1.2B prefill of 1024 tokens
+# shape of one Zamba2-1.2B prefill of 1024 tokens, then head dim 16 (the
+# reduced configs')
 FLASH_CASES = [
     (2, 256, 4, 64, True, torch.float32),
     (1, 512, 2, 128, True, torch.float32),
@@ -241,6 +242,8 @@ FLASH_CASES = [
     (1, 384, 4, 256, True, torch.bfloat16),
     (1, 96, 2, 80, True, torch.float32),
     (1, 1024, 32, 64, True, torch.bfloat16),
+    (1, 12, 4, 16, True, torch.bfloat16),
+    (2, 100, 4, 16, False, torch.float32),
 ]
 
 

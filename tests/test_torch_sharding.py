@@ -12,14 +12,21 @@ package's, on the CPU.
   production meshes (256 and 512 fake ranks) equal, to the byte, the sum
   the reference's specs give.
 - A mini dry-run of reduced configs on the 2 x 4 and 2 x 2 x 2 test
-  meshes: every cell traces, and FLOPs per rank x ranks cover the
-  unsharded step's count; one decode plan with its cache pinned.
+  meshes, a train and a prefill cell each: every cell traces, and FLOPs
+  per rank x ranks cover the unsharded step's count; no collective
+  gathers whole vocabulary rows of the logits (the loss's logsumexp is
+  reduced across the vocabulary's shards); deepseek-v2-236b's expert
+  products run E / model-ranks experts on a rank, forward and backward;
+  one decode plan with its cache pinned.
 - Numbers: a 2-rank gloo run (spawned processes) of the sharded loss, its
   gradients and `plan_train`'s step with the vocabulary sharded over
   "model", against the unsharded step in float32: the losses and the
   gradient norm within 1e-6 relative, each gradient leaf within 1e-6 of
   the model's largest gradient (a fake process group computes no values,
-  so this is the check of the sharded arithmetic).
+  so this is the check of the sharded arithmetic).  An 8-rank gloo run on
+  the 2 x 4 test mesh holds the two DTensor repairs' values the same way:
+  the CE and its gradient over vocabulary-sharded logits, and a MoE
+  layer's output and gradients with the experts on "model".
 
 No process group outlives its test (the `world` fixture), since xdist
 keeps its workers alive between files.  The gloo ranks and the mini
@@ -283,30 +290,37 @@ def test_train_state_bytes_per_rank_equal_the_reference_shards(world, mesh_kind)
 def _unsharded_flops(cfg, shape) -> int:
     from torch.utils.flop_counter import FlopCounterMode
 
-    state, _ = steps.abstract_state(cfg)
     batch = shapes.input_specs(cfg, shape)
     with FlopCounterMode(display=False) as counter:
-        steps.make_train_step(cfg, AdamWConfig())(state, batch)
+        if shape.kind == "train":
+            state, _ = steps.abstract_state(cfg)
+            steps.make_train_step(cfg, AdamWConfig())(state, batch)
+        else:
+            steps.make_prefill_step(cfg)(build_model(cfg).init(device="meta"), batch)
     return counter.get_total_flops()
 
 
 MINI_ARCHS = ("qwen3-32b", "deepseek-v2-236b", "zamba2-1.2b")
+MINI_KINDS = ("train", "prefill")
 
 
 def _mini_dryrun_worker(multi: bool, out: str) -> None:
     """The mini dry-run's cells of one test mesh, in a spawned process (a
     cold trace costs 7-20 s on torch 2.13, most of it DTensor planning
-    each `_StridedShard` redistribution by graph search): each record
-    with the unsharded step's FLOPs and whether a process group outlived
-    the cell."""
+    each `_StridedShard` redistribution by graph search; a prefill cell
+    after its train cell under a second): each record, keyed
+    "arch/kind", with the unsharded step's FLOPs and whether a process
+    group outlived the cell."""
     torch.set_num_threads(1)
-    shape = shapes.ShapeSpec("t", 32, 8, "train")
     recs = {}
     for arch in MINI_ARCHS:
         cfg = get_reduced(arch).replace(vocab=512, attn_impl="chunked", ssm_impl="jnp")
-        with fake_world(8):
-            rec = dryrun.trace_cell(cfg, shape, make_test_mesh(multi_pod=multi))
-        recs[arch] = dict(rec, unsharded_flops=_unsharded_flops(cfg, shape), group_outlived=dist.is_initialized())
+        for kind in MINI_KINDS:
+            shape = shapes.ShapeSpec("t", 32, 8, kind)
+            with fake_world(8):
+                rec = dryrun.trace_cell(cfg, shape, make_test_mesh(multi_pod=multi))
+            recs[f"{arch}/{kind}"] = dict(rec, unsharded_flops=_unsharded_flops(cfg, shape),
+                                          group_outlived=dist.is_initialized())
     with open(out, "w") as f:
         json.dump(recs, f)
 
@@ -314,7 +328,7 @@ def _mini_dryrun_worker(multi: bool, out: str) -> None:
 @pytest.mark.parametrize("multi", [False, True], ids=["2x4", "2x2x2"])
 @pytest.mark.parametrize("arch", MINI_ARCHS)
 def test_mini_dryrun_on_the_test_meshes(spawned, arch, multi):
-    rec = _results(*spawned[f"dryrun_{multi}"])[arch]
+    rec = _results(*spawned[f"dryrun_{multi}"])[f"{arch}/train"]
     assert not rec["group_outlived"] and rec["n_devices"] == 8
     assert rec["cost"]["flops"] * 8 >= rec["unsharded_flops"] > 0
     assert sum(rec["collectives"].values()) > 0 and rec["n_collectives"] > 0
@@ -326,6 +340,85 @@ def test_mini_dryrun_on_the_test_meshes(spawned, arch, multi):
     shape = shapes.ShapeSpec("t", 32, 8, "train")
     row = roofline.analyze_cell(dict(rec, arch=arch, shape="t", mesh="test"), shape)
     assert row["dominant"] in ("compute", "memory", "collective") and row["useful_ratio"] > 0
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["2x4", "2x2x2"])
+@pytest.mark.parametrize("arch", MINI_ARCHS)
+def test_mini_dryrun_prefill_cells_on_the_test_meshes(spawned, arch, multi):
+    rec = _results(*spawned[f"dryrun_{multi}"])[f"{arch}/prefill"]
+    assert not rec["group_outlived"] and rec["n_devices"] == 8
+    assert rec["cost"]["flops"] * 8 >= rec["unsharded_flops"] > 0
+    assert rec["memory"]["peak_memory_in_bytes"] >= rec["memory"]["argument_size_in_bytes"] > 0
+    assert 0 < rec["largest_output"]["bytes"] <= rec["memory"]["peak_memory_in_bytes"]
+    shape = shapes.ShapeSpec("t", 32, 8, "prefill")
+    row = roofline.analyze_cell(dict(rec, arch=arch, shape="t", mesh="test"), shape)
+    assert row["dominant"] in ("compute", "memory", "collective") and row["useful_ratio"] > 0
+
+
+def _mesh_sizes(multi: bool) -> tuple:
+    """(ranks a batch row is split over, ranks the vocabulary is split
+    over) on a test mesh under the train rules."""
+    return (4, 2) if multi else (2, 4)
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["2x4", "2x2x2"])
+@pytest.mark.parametrize("arch", MINI_ARCHS)
+@pytest.mark.parametrize("kind", MINI_KINDS)
+def test_no_collective_gathers_the_vocabulary(spawned, kind, arch, multi):
+    """No rank receives whole vocabulary rows of the logits: no all-gather
+    or all-to-all on the model axis takes a vocabulary shard (last dim V /
+    model ranks) of at least a rank's logits shard's size (B / batch ranks
+    x S x V / model ranks), in whatever view: DTensor gathers the shard
+    along dim 0 and then reassembles it into (B / batch ranks, S, V).
+    (`torch.logsumexp` over the sharded logits did, in the loss's forward
+    and backward.)  The literal test, a result whose last dim is V = 512,
+    would also match the chunked attention's 512-wide key blocks."""
+    rec = _results(*spawned[f"dryrun_{multi}"])[f"{arch}/{kind}"]
+    rows, parts = _mesh_sizes(multi)
+    shard = (8 // rows) * 32 * (512 // parts)
+    gathered = [c for c in rec["collective_shapes"] if c[0] in ("all-gather", "all-to-all") and c[1] == "model"
+                and c[2] and c[2][-1] == 512 // parts and math.prod(c[2]) >= shard]
+    assert gathered == [], gathered
+    assert rec["collective_shapes"] and all(c[1] in ("data", "pod_data", "model") for c in rec["collective_shapes"])
+
+
+#: `tools/dryrun_flops_ratio.py --package jax`: the reference's per-rank
+#: FLOPs against an even 8-way split (XLA's cost analysis) on the mini
+#: dry-run's deepseek-v2-236b cells
+REFERENCE_MOE_FLOPS_RATIO = {("train", False): 1.2566, ("train", True): 1.3558,
+                             ("prefill", False): 1.2403, ("prefill", True): 1.4800}
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["2x4", "2x2x2"])
+@pytest.mark.parametrize("kind", MINI_KINDS)
+def test_moe_experts_run_on_their_shards(spawned, kind, multi):
+    """deepseek-v2-236b: every `_expert_ffn` product on a rank, forward
+    and backward, runs E / model ranks of the 8 experts (2 on 2 x 4) on C /
+    batch ranks of the capacity C = 256 (all tokens) slots: the products
+    with an operand or result of the expert weights' (d, f) or (f, d)
+    trailing dims (no other product of the cell has them), each of
+    2 (E / model) (C / batch) d f FLOPs.  The rank's FLOPs against an even
+    8-way split of the unsharded step are no more than the reference's on
+    the same cell (the reference's XLA count takes in elementwise work
+    too)."""
+    from repro_torch.models import moe
+
+    rec = _results(*spawned[f"dryrun_{multi}"])[f"deepseek-v2-236b/{kind}"]
+    spec = get_reduced("deepseek-v2-236b").moe
+    cap, (d, f) = moe.capacity(spec, 8 * 32, 32), (spec.d_model, spec.d_ff)
+    rows, parts = _mesh_sizes(multi)
+
+    def weight_like(shape):
+        return tuple(shape[1:]) in ((d, f), (f, d))
+
+    experts = [(a, b) for a, b, _ in rec["bmm_shapes"]
+               if weight_like(a) or weight_like(b) or weight_like((a[0], a[1], b[2]))]
+    assert len(experts) >= 2 and cap == 256, rec["bmm_shapes"]
+    assert {a[0] for a, _ in experts} == {spec.n_experts // parts}, experts
+    assert {a[0] * a[1] * a[2] * b[2] for a, b in experts} == {spec.n_experts // parts * cap // rows * d * f}, experts
+    ratio = rec["cost"]["flops"] * 8 / rec["unsharded_flops"]
+    print(f"deepseek-v2-236b {kind} {'2x2x2' if multi else '2x4'}: per-rank FLOPs {ratio:.2f}x an even split")
+    assert 1.0 <= ratio <= REFERENCE_MOE_FLOPS_RATIO[kind, multi]
 
 
 def test_decode_plan_pins_its_cache(world):
@@ -404,16 +497,114 @@ def _gloo_worker(rank: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+def _ce_and_grad(model, logits, labels):
+    """`model.loss`'s CE with the model's forward replaced by `logits`, and
+    its gradient with respect to them."""
+    model.forward = lambda *a, **k: (logits, None, 0.0)
+    ce = model.loss(None, {"tokens": labels, "labels": labels})[1]["ce"]
+    return ce, torch.autograd.grad(ce, logits)[0]
+
+
+def test_loss_on_a_one_rank_mesh_is_the_plain_loss_bit_for_bit():
+    """Where no mesh dim of more than one rank shards the vocabulary (the
+    one-rank mesh of chip_smoke.py's phase sharded_train, held bit-equal
+    to the plain step), the loss takes `torch.logsumexp` as on plain
+    tensors: the CE and its gradient bit for bit (the reduced stable form
+    rounds differently)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_device_mesh
+
+    model = build_model(get_reduced("qwen2-0.5b").replace(vocab=512, param_dtype=torch.float32))
+    g = torch.Generator().manual_seed(1)
+    logits = 4 * torch.randn(2, 8, model.config.padded_vocab, generator=g)
+    labels = torch.randint(0, model.config.vocab, (2, 8), generator=g)
+    want = _ce_and_grad(model, logits.clone().requires_grad_(), labels)
+    mesh = make_device_mesh("cpu")
+    try:
+        got = steps._replicated_step(functools.partial(_ce_and_grad, model))(
+            distribute_tensor(logits, mesh, [Shard(0), Shard(2)]).requires_grad_(),
+            distribute_tensor(labels, mesh, [Shard(0), Replicate()]))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got[0].to_local(), want[0]) and torch.equal(got[1].to_local(), want[1])
+
+
+def _mesh8_worker(rank: int, store: str, out: str) -> None:
+    """One rank of the 2 x 4 test mesh on gloo (8 spawned ranks): the two
+    DTensor repairs' values against plain tensors in float32.
+    - The loss over vocabulary-sharded logits (Shard(0), Shard(2)),
+      through `Model.loss` with the model's forward replaced by the
+      logits: the CE and its gradient with respect to the logits.
+    - One MoE layer of reduced moonshot-v1-16b-a3b on its compute
+      placements (the experts on "model", the tokens on "data"): the
+      output, and the gradients of the input and of the expert weights.
+    Errors are taken against the largest element of the plain value."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import moe
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", rank=rank, world_size=8, init_method=f"file://{store}")
+    res = {}
+    try:
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        g = torch.Generator().manual_seed(0)
+        err = lambda got, want: float((got.full_tensor() - want).abs().max() / want.abs().max())
+
+        cfg = get_reduced("qwen2-0.5b").replace(vocab=512, param_dtype=torch.float32)
+        model = build_model(cfg)
+        logits = 4 * torch.randn(8, 16, cfg.padded_vocab, generator=g)
+        labels = torch.randint(0, cfg.vocab, (8, 16), generator=g)
+        labels[:, :3] = -1
+        loss = functools.partial(_ce_and_grad, model)
+        ce, want = loss(logits.clone().requires_grad_(), labels)
+        dce, got = steps._replicated_step(loss)(
+            distribute_tensor(logits, mesh, [Shard(0), Shard(2)]).requires_grad_(),
+            distribute_tensor(labels, mesh, [Shard(0), Replicate()]))
+        res["ce_rel"] = abs(float(dce.full_tensor()) - float(ce)) / abs(float(ce))
+        res["ce_grad_rel"] = err(got, want)
+
+        mcfg = get_reduced("moonshot-v1-16b-a3b").replace(param_dtype=torch.float32)
+        layer = next(lp for lp in build_model(mcfg).init(seed=0, device="cpu")["layers"] if "moe/w_gate" in lp)
+        lp = {k: v.clone().requires_grad_() for k, v in layer.items() if k.startswith("moe/")}
+        x = torch.randn(8, 16, mcfg.d_model, generator=g).requires_grad_()
+        r = torch.randn(x.shape, generator=g)
+
+        def ffn(lp, x, r):  # the output and three gradients of <y, r>
+            y, _ = moe.moe_ffn(lp, mcfg.moe, x)
+            return y, torch.autograd.grad((y * r).sum(), [x, lp["moe/w_gate"], lp["moe/w_down"]])
+
+        y, wants = ffn(lp, x, r)
+        on_model = {"moe/w_gate": 0, "moe/w_up": 0, "moe/w_down": 0, "moe/shared_gate": 1, "moe/shared_up": 1,
+                    "moe/shared_down": 0}
+        dlp = {k: distribute_tensor(v.detach(), mesh, [Replicate(), Shard(on_model[k]) if k in on_model else Replicate()])
+               .requires_grad_() for k, v in lp.items()}
+        dx = distribute_tensor(x.detach(), mesh, [Shard(0), Replicate()]).requires_grad_()
+        dy, gots = steps._replicated_step(ffn)(dlp, dx, distribute_tensor(r, mesh, [Shard(0), Replicate()]))
+        res["moe_y_rel"] = err(dy, y.detach())
+        res["moe_grad_rel"] = max(err(a, b) for a, b in zip(gots, wants))
+        res["expert_placements"] = [str(p) for p in gots[1].placements]
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def spawned(tmp_path_factory):
     """The module's spawned processes, started when its first test starts
-    so that they run beside its other tests: the two gloo ranks, and one
-    mini dry-run worker per test mesh.  Each entry is (processes, result
+    so that they run beside its other tests: the two gloo ranks, the eight
+    of the 2 x 4 mesh, and one mini dry-run worker per test mesh.  Each entry is (processes, result
     file); they are killed at the module's end if still alive."""
     tmp = tmp_path_factory.mktemp("spawned")
     ctx = torch.multiprocessing.get_context("spawn")
     jobs = {"gloo": ([ctx.Process(target=_gloo_worker, args=(r, str(tmp / "store"), str(tmp / "gloo.json")))
-                      for r in range(2)], tmp / "gloo.json")}
+                      for r in range(2)], tmp / "gloo.json"),
+            "mesh8": ([ctx.Process(target=_mesh8_worker, args=(r, str(tmp / "store8"), str(tmp / "mesh8.json")))
+                       for r in range(8)], tmp / "mesh8.json")}
     for multi in (False, True):
         out = tmp / f"dryrun_{multi}.json"
         jobs[f"dryrun_{multi}"] = ([ctx.Process(target=_mini_dryrun_worker, args=(multi, str(out)))], out)
@@ -444,3 +635,12 @@ def test_two_gloo_ranks_equal_the_unsharded_step(spawned, arch):
     assert res["vocab_sharded"] and res["step"] == 1
     for key in ("loss_rel", "grad_rel", "step_loss_rel", "grad_norm_rel"):
         assert res[key] <= 1e-6, (key, res)
+
+
+def test_repairs_hold_their_values_on_the_2x4_mesh(spawned):
+    res = _results(*spawned["mesh8"])
+    for key in ("ce_rel", "ce_grad_rel", "moe_y_rel", "moe_grad_rel"):
+        assert res[key] <= 1e-6, (key, res)
+    # the experts' gradient stays on their shards, a partial sum over the
+    # data ranks, each of which ran the experts on its share of the slots
+    assert res["expert_placements"] == ["P(sum)", "S(0)"]
