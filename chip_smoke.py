@@ -326,9 +326,11 @@ FULL = dict(
     # plan_train's step on a one-rank NCCL mesh beside make_train_step, from
     # one state, on phase train's config and batch
     sharded_train=dict(arch="qwen2-0.5b", reduced=False, steps=3, batch=8, seq=512),
-    # the dry-run's train_4k cell on 256 and 512 fake ranks, then phase
-    # sharded_train's step on a (1, 1) fake mesh through the roofline
-    dryrun=dict(arch="qwen2-0.5b", shape="train_4k", meshes=("single", "multi")),
+    # the dry-run's train_4k cell on 256 and 512 fake ranks, its prefill_32k
+    # and decode_32k cells on 256, then phase sharded_train's step on a
+    # (1, 1) fake mesh through the roofline
+    dryrun=dict(arch="qwen2-0.5b", shape="train_4k", meshes=("single", "multi"),
+                serve=("prefill_32k", "decode_32k")),
     # the paper's evaluations at the reference's grids and sizes, held
     # against tools/paper_reference.json's section "full"
     paper=dict(reference="full", fig35_ns=PAPER_FIG35_NS, fig35_m=PAPER_FIG35_M, fig46_p=PAPER_FIG46_P_GRID,
@@ -2799,15 +2801,18 @@ def phase_sharded_train(torch, device, sizes) -> dict:
 
 
 def rule_argument_bytes(cfg, shape, mesh) -> int:
-    """Bytes of one rank's shards of `plan_train`'s inputs (state and
-    batch), from the rules alone: each leaf's bytes over the product of
-    the mesh axes its resolved spec shards it over."""
+    """Bytes of one rank's shards of the plan's tensor inputs (`plan_train`:
+    the state and the batch; `plan_prefill`: the parameters and the batch;
+    `plan_decode`: the parameters, the cache and the tokens), from the
+    train rules alone: each leaf's bytes over the product of the mesh axes
+    its resolved spec shards it over."""
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.shapes import input_specs
     from repro_torch.launch.steps import abstract_state
+    from repro_torch.models.lm import build_model
 
     rules = shd.rules_train(mesh)
-    state, axes = abstract_state(cfg)
+    model = build_model(cfg)
     total = 0
 
     def add(t, spec):
@@ -2815,9 +2820,19 @@ def rule_argument_bytes(cfg, shape, mesh) -> int:
         parts = [p for p in spec if p is not None]
         total += t.numel() * t.element_size() // math.prod(shd._axes_size(mesh, p) for p in parts)
 
-    shd.zip_map(lambda t, ax: add(t, shd.resolve_spec(ax, t.shape, mesh, rules)), state, axes)
+    def add_tree(tree, axes):
+        shd.zip_map(lambda t, ax: add(t, shd.resolve_spec(ax, t.shape, mesh, rules)), tree, axes)
+
+    if shape.kind == "train":
+        add_tree(*abstract_state(cfg))
+    else:
+        add_tree(model.init(device="meta"), model.param_axes())
+    inputs = input_specs(cfg, shape)
+    if shape.kind == "decode":
+        add_tree(inputs["cache"], model.cache_axes(inputs["cache"]))
+        inputs = {"tokens": inputs["tokens"]}
     bd = rules["batch"]
-    for t in input_specs(cfg, shape).values():
+    for t in inputs.values():
         add(t, (bd,) if t.shape[0] % shd._axes_size(mesh, bd) == 0 else ())
     return total
 
@@ -2832,10 +2847,12 @@ def phase_dryrun(torch, sizes, sharded: dict) -> None:
     """The multi-pod dry-run on the card's host (`launch.dryrun.run_cell`):
     the config's `shape` cell on 256 fake ranks (16 x 16) and on 512 (2 x 16
     x 16): status OK, per-rank argument bytes equal to the rules' shards,
-    collective bytes > 0.  Then phase sharded_train's step traced on a
-    (1, 1) fake mesh and put through `roofline.analyze_cell`: its compute
-    and memory terms against phase sharded_train's measured plain step
-    (predicted against read MFU)."""
+    collective bytes > 0.  Then its `serve` cells (prefill_32k, decode_32k)
+    on 256: the same checks, and no rank builds the whole embedding table.
+    Then phase sharded_train's step traced on a (1, 1) fake mesh and put
+    through `roofline.analyze_cell`: its compute and memory terms against
+    phase sharded_train's measured plain step (predicted against read
+    MFU)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch import dryrun, roofline
@@ -2873,6 +2890,24 @@ def phase_dryrun(torch, sizes, sharded: dict) -> None:
                            largest_output=largest, global_logits_bytes=logits_bytes,
                            bytes_adjusted_gather_loss=DRYRUN_GATHER_LOSS_RESULT_BYTES.get(kind),
                            rule_argument_bytes=want, roofline=row)
+    for name in dr.get("serve", ()):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(dr["arch"], name, "single")
+        wall = time.perf_counter() - t0
+        check(rec["status"] == "OK", f"dry-run {dr['arch']} x {name} x single: {rec['status']}")
+        with fake_world(256):
+            want = rule_argument_bytes(dryrun.cell_config(dr["arch"]), SHAPES[name], make_production_mesh())
+        got = rec["memory"]["argument_size_in_bytes"]
+        check(got == want, f"{name}: per-rank argument bytes {got} == the rules' shards {want}")
+        check(sum(rec["collectives"].values()) > 0, f"{name}: collective bytes > 0 on 256 ranks")
+        # the serving plans keep the embedding table on its vocabulary shards
+        check(not rec["whole_table_ops"], f"{name}: ops of the whole embedding table's shape: "
+              f"{rec['whole_table_ops']}")
+        cells[f"{name}/single"] = dict(n_devices=rec["n_devices"], wall_s=wall, lower_s=rec["lower_s"],
+                                       trace_s=rec["compile_s"], memory=rec["memory"], cost=rec["cost"],
+                                       collectives=rec["collectives"], n_collectives=rec["n_collectives"],
+                                       bytes_adjusted=rec["bytes_adjusted"], largest_output=rec["largest_output"],
+                                       rule_argument_bytes=want, roofline=roofline.analyze_cell(rec))
 
     st = sizes["sharded_train"]
     shape = ShapeSpec(f"train_{st['batch']}x{st['seq']}", st["seq"], st["batch"], "train")

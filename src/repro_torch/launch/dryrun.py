@@ -34,6 +34,14 @@ fake mode refuses.)  Its records keep the reference's keys:
   global_logits_ops   for a train cell, the ops whose result has the
              global logits' shape (batch, seq, padded vocabulary): a rank
              that builds one holds every rank's logits
+  whole_table_ops   the ops whose result has the embedding table's
+             global shape (padded vocabulary, d_model): a rank that builds
+             one holds the whole table (the train plan gathers it; the
+             prefill and decode plans keep it on its vocabulary shards)
+  global_expert_ops   for a MoE config, the ops whose result has the
+             global shape of a layer's dispatch buffer (E + 1, C, d) or of
+             every expert's outputs (E, C, d): a rank that builds one
+             holds every expert's slots
   bytes_adjusted   result bytes of every op but views (the roofline's
              memory term)
   collective_shapes   [collective, mesh dim, input shape, result shape,
@@ -68,6 +76,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs import ARCH_IDS, get_config
+from ..models.moe import capacity
 from . import sharding as shd
 from .mesh import fake_world, make_production_mesh
 from .shapes import SHAPES, ShapeSpec, applicability
@@ -108,7 +117,7 @@ class LocalCost(TorchDispatchMode):
     is what DTensor issues for its own ops.  A DTensor op is returned
     `NotImplemented`, so DTensor runs it and the mode sees its local ops."""
 
-    def __init__(self, live_args=(), watch_shape=None, axes=None):
+    def __init__(self, live_args=(), watch=None, axes=None):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -119,8 +128,9 @@ class LocalCost(TorchDispatchMode):
         self.collectives: dict = defaultdict(int)
         self.n_collectives = 0
         self.largest = dict(bytes=0, op=None, shape=None)
-        self.watch_shape = None if watch_shape is None else tuple(watch_shape)
-        self.watched: dict = defaultdict(int)  # op -> results of watch_shape
+        # name -> shape, and name -> {op: results of that shape}
+        self.watch = {name: tuple(shape) for name, shape in (watch or {}).items()}
+        self.watched: dict = {name: defaultdict(int) for name in self.watch}
         self.axes = axes or {}  # process group name -> mesh dim name
         self.collective_shapes: dict = defaultdict(int)  # (collective, axis, in, out) -> calls
         self.bmm_shapes: dict = defaultdict(int)  # (shape a, shape b) -> calls
@@ -180,8 +190,9 @@ class LocalCost(TorchDispatchMode):
             for t in outs:
                 if _nbytes(t) > self.largest["bytes"]:
                     self.largest = dict(bytes=_nbytes(t), op=name, shape=list(t.shape))
-                if tuple(t.shape) == self.watch_shape:
-                    self.watched[name] += 1
+                for key, shape in self.watch.items():
+                    if tuple(t.shape) == shape:
+                        self.watched[key][name] += 1
             self.bytes_accessed += result + sum(_nbytes(t) for t in ins)
         for t in outs:
             self._track(t)
@@ -208,10 +219,17 @@ def trace_cell(cfg, shape: ShapeSpec, mesh, remat: str = "none", rules=None, pin
     args = shd.distribute(inputs, in_pl, mesh)
     t_lower = time.perf_counter() - t0
     t0 = time.perf_counter()
-    watch = (shape.global_batch, shape.seq_len, cfg.padded_vocab) if shape.kind == "train" else None
+    watch = {"whole_table": (cfg.padded_vocab, cfg.d_model)}
+    if shape.kind == "train":
+        watch["global_logits"] = (shape.global_batch, shape.seq_len, cfg.padded_vocab)
+    if cfg.moe is not None:
+        seq = 1 if shape.kind == "decode" else shape.seq_len
+        cap = capacity(cfg.moe, shape.global_batch * seq, seq)
+        watch["expert_buffer"] = (cfg.moe.n_experts + 1, cap, cfg.d_model)
+        watch["expert_outputs"] = (cfg.moe.n_experts, cap, cfg.d_model)
     axes = {m.get_group(i).group_name: dim for m in (mesh, shd.dtensor_mesh(mesh))
             for i, dim in enumerate(m.mesh_dim_names)}
-    with LocalCost(_local_tensors(args), watch_shape=watch, axes=axes) as cost:
+    with LocalCost(_local_tensors(args), watch=watch, axes=axes) as cost:
         out = fn(*args)
     t_trace = time.perf_counter() - t0
     arg_bytes = shd.local_bytes(args)
@@ -230,7 +248,9 @@ def trace_cell(cfg, shape: ShapeSpec, mesh, remat: str = "none", rules=None, pin
         bytes_by_op=dict(top),
         bytes_adjusted=int(adjusted),
         largest_output=cost.largest,
-        global_logits_ops=dict(cost.watched),
+        global_logits_ops=dict(cost.watched.get("global_logits", {})),
+        whole_table_ops=dict(cost.watched["whole_table"]),
+        global_expert_ops={op: n for k in ("expert_buffer", "expert_outputs") for op, n in cost.watched.get(k, {}).items()},
         collective_shapes=[[*k, n] for k, n in cost.collective_shapes.items()],
         bmm_shapes=[[*k, n] for k, n in cost.bmm_shapes.items()],
     )

@@ -9,7 +9,8 @@
 
 Counterpart of `repro.launch.shapes`.  The stand-ins are meta-device
 tensors of each input's shape and dtype, which allocate nothing; the
-decode cache's come from a prefill on the meta device.
+decode cache's come from a short prefill on the meta device, grown to
+the cell's length.
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ def applicability(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     return True, ""
 
 
+#: text tokens of the prefill that gives a decode cell's cache its shapes
+#: (at least an SSM's conv width less one, which its conv state keeps)
+SHORT_PREFILL = 64
+
+
 def _meta(shape, dtype):
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
@@ -66,9 +72,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec):
     """Meta-tensor stand-ins for every model input of this cell.
 
     train/prefill -> batch dict; decode -> {cache, tokens, position} where
-    the cache comes from a prefill on the meta device at full cache length
-    (no allocation; through the plain routes, since the kernels run on the
-    card only, and the cache's shapes do not depend on the route).
+    the cache comes from a prefill of at most `SHORT_PREFILL` text tokens on
+    the meta device, grown to the full cache length (`Model.grow_cache`):
+    the shapes of a prefill at full length (SSM states carry no length, the
+    encoder's cross kv is the encoder's), where tracing that prefill, even
+    on meta tensors, took minutes for the 32k-token cells.  No allocation;
+    through the plain routes, since the kernels run on the card only, and
+    the cache's shapes do not depend on the route.
     """
     B, S = shape.global_batch, shape.seq_len
     if shape.kind in ("train", "prefill"):
@@ -76,9 +86,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec):
 
     model = build_model(cfg.replace(attn_impl="chunked", ssm_impl="jnp"))
     params = model.init(device="meta")
-    _, cache = model.prefill(params, _batch(cfg, B, S, labels=False))
+    short = min(S, cfg.vision_patches + SHORT_PREFILL if cfg.family == "vlm" else SHORT_PREFILL)
+    _, cache = model.prefill(params, _batch(cfg, B, short, labels=False))
     return {
-        "cache": cache,
+        "cache": model.grow_cache(cache, S),
         "tokens": _meta((B,), torch.int32),
         "position": _meta((), torch.int32),
     }

@@ -158,16 +158,21 @@ def _on(tree, placements):
     return shd.zip_map(one, tree, placements)
 
 
-def _fsdp_gather(cfg: ModelConfig, params, mesh):
+def _fsdp_gather(cfg: ModelConfig, params, mesh, whole_embed: bool = True):
     """params -> params on their compute placements: each parameter's
     'fsdp' shards gathered (the stationary rules), its 'model' dims left
     sharded, as FSDP gathers a layer's weights before it runs.  Under
     autograd, the gather's backward reduce-scatters the gradients back
-    onto the batch axes.  The embedding table is gathered whole: a lookup
-    in a vocab-sharded table gives a `_MaskPartial` that DTensor cannot
-    reduce-scatter into the residual stream."""
+    onto the batch axes.  With `whole_embed` (training) the embedding table
+    is gathered whole: a lookup in a vocab-sharded table gives a
+    `_MaskPartial` that DTensor cannot reduce-scatter into the residual
+    stream in the backward.  Without it (prefill and decode, no backward)
+    the table stays on its vocabulary shards, and the lookup's partial
+    rows are all-reduced where the residual stream is pinned: (batch, seq,
+    d) bytes instead of the whole table on every rank at every step."""
     compute = shd.param_shardings(build_model(cfg).param_axes(), params, mesh, shd.rules_serve_stationary(mesh))
-    compute["top"]["embed"] = shd.replicated(mesh)
+    if whole_embed:
+        compute["top"]["embed"] = shd.replicated(mesh)
     return lambda p: _on(p, compute)
 
 
@@ -286,7 +291,7 @@ def plan_prefill(cfg: ModelConfig, shape: ShapeSpec, mesh, rules=None):
     rules = rules or shd.rules_train(mesh)
     prefill = make_prefill_step(_pinned(cfg, mesh, rules))
     params, p_shard = _params_and_shardings(cfg, mesh, rules)
-    gather = _fsdp_gather(cfg, params, mesh)
+    gather = _fsdp_gather(cfg, params, mesh, whole_embed=False)
     batch = input_specs(cfg, shape)
     b_shard = batch_shardings(batch, mesh, rules)
 
@@ -320,7 +325,7 @@ def plan_decode(cfg: ModelConfig, shape: ShapeSpec, mesh, rules=None, pin_cache:
     cache, tokens = inputs["cache"], inputs["tokens"]
     c_shard = shd.tree_shardings(build_model(cfg).cache_axes(cache), cache, mesh, rules)
     params, p_shard = _params_and_shardings(cfg, mesh, rules)
-    gather = _fsdp_gather(cfg, params, mesh)
+    gather = _fsdp_gather(cfg, params, mesh, whole_embed=False)
     decode = make_decode_step(_pinned(cfg, mesh, rules))
     t_shard = shd.batch_sharding(mesh, tokens.shape, rules)
     constrain = _decode_cache_constraint(mesh, rules) if pin_cache else None

@@ -16,6 +16,7 @@ Softmax math in float32, with the reference's casts.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -94,6 +95,34 @@ def _scale(head_dim: int) -> float:
     return 1.0 / math.sqrt(head_dim)
 
 
+def _per_shard(sdpa):
+    """`sdpa(q, k, v, ...)` that, on DTensors, runs on each rank's own batch
+    rows and heads: k and v (and q) are placed with their batch (0) and
+    head (2) dims on q's shards and every other dim replicated, a local
+    slice where they were replicated.  (With k and v replicated, as GQA's
+    kv heads are where they do not divide the model axis, each product of
+    the loop flattens (batch, heads) into one dim, which DTensor shards
+    only on its leading part: it gathered q, and every rank of the model
+    axis ran every head.)  A tensor already on those placements is passed
+    as it is: an identity redistribution would pin its gradient's
+    placements.  On plain tensors, `sdpa` itself."""
+
+    @functools.wraps(sdpa)
+    def run(q, k, v, *args, **kwargs):
+        if torch.distributed.is_available():
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+
+            if isinstance(q, DTensor):
+                mesh = q.device_mesh
+                pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q.placements]
+                return sdpa(*(t if list(t.placements) == pl else t.redistribute(mesh, pl) for t in (q, k, v)),
+                            *args, **kwargs)
+        return sdpa(q, k, v, *args, **kwargs)
+
+    return run
+
+
+@_per_shard
 def _sdpa_ref(q, k, v, causal: bool, q_offset: int = 0):
     """(B,Sq,H,D) x (B,Sk,H,D) -> (B,Sq,H,D), scores materialized (oracle)."""
     Sq, D = q.shape[1], q.shape[3]
@@ -107,6 +136,7 @@ def _sdpa_ref(q, k, v, causal: bool, q_offset: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
 
 
+@_per_shard
 def _sdpa_chunked(q, k, v, causal: bool, block: int = 512):
     """Online softmax over KV blocks: per-step memory O(B·H·Sq·block)."""
     B, Sq, H, D = q.shape
@@ -119,9 +149,12 @@ def _sdpa_chunked(q, k, v, causal: bool, block: int = 512):
     scale = _scale(D)
     dev = q.device
     qi = torch.arange(Sq, device=dev)[:, None]
-    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
-    m_run = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
-    l_run = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    # the running buffers are made like q, so that on DTensors they lie on
+    # q's shards (zeros made from a shape alone are replicated: every rank
+    # would build the whole batch's buffers)
+    acc = torch.zeros_like(q, dtype=torch.float32).transpose(1, 2)  # (B, H, Sq, D)
+    m_run = torch.full_like(acc[..., 0], NEG_INF)
+    l_run = torch.zeros_like(acc[..., 0])
     for j in range(nb):
         kj = k[:, j * block:(j + 1) * block]
         vj = v[:, j * block:(j + 1) * block]

@@ -294,6 +294,12 @@ class Model:
     def _embed(self, params, tokens):
         cfg = self.config
         h = F.embedding(tokens, params["top"]["embed"])
+        if cfg.activation_constraint is not None and _is_partial(h):
+            # a lookup in a vocabulary-sharded table (the serving plans'):
+            # its partial rows are reduced once, here, onto the pinned
+            # placements, since DTensor can reduce a masked partial only
+            # once and the residual stream reads it twice
+            h = cfg.activation_constraint(h)
         if cfg.embed_scale:
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(h.dtype)
         return h
@@ -569,6 +575,15 @@ def _logsumexp(logits):
             m = reduced(logits.detach().amax(dim=-1, keepdim=True))
             return m + torch.log(reduced(torch.exp(logits - m).sum(dim=-1, keepdim=True)))
     return torch.logsumexp(logits, dim=-1, keepdim=True)
+
+
+def _is_partial(x) -> bool:
+    """Whether `x` is a DTensor holding partial sums on some mesh dim."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor) and any(p.is_partial() for p in x.placements)
 
 
 def _vocab_ids(logits):

@@ -69,6 +69,24 @@ def _router(params, spec: MoESpec, x, name: str):
     return weights, ids, aux
 
 
+def _on_token_shards(x):
+    """The router's input: on a DTensor, `x` with its sequence dim also split
+    over the mesh dims that replicate it (where they divide it; a local
+    slice), so that each rank routes its own tokens and the routing's
+    gradient returns onto them; otherwise `x`."""
+    if not torch.distributed.is_available():
+        return x
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    pl, parts = list(x.placements), 1
+    for i, p in enumerate(pl):
+        if p.is_replicate() and x.shape[1] % (parts * x.device_mesh.size(i)) == 0:
+            pl[i], parts = Shard(1), parts * x.device_mesh.size(i)
+    return x if parts == 1 else x.redistribute(x.device_mesh, pl)
+
+
 def _shared_experts(params, spec: MoESpec, x, name: str):
     g = torch.matmul(x, params[f"{name}/shared_gate"])
     u = torch.matmul(x, params[f"{name}/shared_up"])
@@ -78,7 +96,7 @@ def _shared_experts(params, spec: MoESpec, x, name: str):
 
 def moe_ffn(params, spec: MoESpec, x, impl: str = "gather", name: str = "moe"):
     """x: (B,S,d) -> (y: (B,S,d), aux_loss scalar)."""
-    weights, ids, aux = _router(params, spec, x, name)
+    weights, ids, aux = _router(params, spec, _on_token_shards(x), name)
     if impl == "dense":
         y = _dense_dispatch(params, spec, x, weights, ids, name)
     elif impl == "gather":
@@ -132,21 +150,20 @@ def _slots(ids_f, n_experts: int, cap: int):
     return pos, pos < cap
 
 
-def _expert_placements(buf, w):
-    """The placements of the dispatch buffer `buf` (E, C, d) for the
-    expert products, or None unless both it and the expert weight `w` are
-    DTensors: the weight's shards of the expert dim, and the capacity dim
-    split over every other mesh dim (the data axes), so that a rank runs
-    its experts on its share of the slots.  The buffer is an `index_put`
-    into a replicated zero tensor (and in the backward the combine's
-    gradient one sharded on d); left as they are, DTensor shards the
-    products' contraction dim instead and runs every expert, on every
-    slot, on every rank."""
+def _expert_placements(x, w):
+    """The placements of the (E, C, d) dispatch buffer for the expert
+    products, or None unless both the tokens `x` and the expert weight `w`
+    are DTensors: the weight's shards of the expert dim, and the capacity
+    dim split over every other mesh dim (the data axes), so that a rank
+    runs its experts on its share of the slots.  (Built as one global
+    buffer, an `index_put` into replicated zeros, DTensor sharded the
+    products' contraction dim instead and ran every expert, on every slot,
+    on every rank.)"""
     if not torch.distributed.is_available():
         return None
     from torch.distributed.tensor import DTensor, Shard
 
-    if not (isinstance(buf, DTensor) and isinstance(w, DTensor)):
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
         return None
     return [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Shard(1) for p in w.placements]
 
@@ -156,6 +173,9 @@ def _gather_dispatch(params, spec: MoESpec, x, weights, ids, name: str):
     B, S, d = x.shape
     T, k, E = B * S, spec.top_k, spec.n_experts
     cap = capacity(spec, T, S)
+    pl = _expert_placements(x, params[f"{name}/w_gate"])
+    if pl is not None:
+        return _sharded_dispatch(params, spec, x, weights, ids, name, cap, pl)
     xf = x.reshape(T, d)
     ids_f = ids.reshape(T * k)
     w_f = weights.reshape(T * k)
@@ -167,16 +187,57 @@ def _gather_dispatch(params, spec: MoESpec, x, weights, ids, name: str):
     e_idx = torch.where(keep, ids_f, E)
     p_idx = torch.where(keep, pos, 0)
     buf = torch.zeros((E + 1, cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((e_idx, p_idx), xf[tok_f], accumulate=True)  # out of place: DTensor takes it
-    pl = _expert_placements(buf, params[f"{name}/w_gate"])
-    xe = buf[:E] if pl is None else buf[:E].redistribute(buf.device_mesh, pl)
-    ye = _expert_ffn(params, spec, xe, name)  # (E, C, d)
-    if pl is not None:  # the combine reads every slot; its gradient comes back onto the shards
-        from torch.distributed.tensor import Replicate
-
-        ye = ye.redistribute(ye.device_mesh, [Replicate()] * len(pl))
+    buf = buf.index_put((e_idx, p_idx), xf[tok_f], accumulate=True)  # out of place
+    ye = _expert_ffn(params, spec, buf[:E], name)  # (E, C, d)
 
     # gather back with the combine weights; a token's k rows are contiguous
     y_tok = ye[torch.where(keep, ids_f, 0), p_idx]  # (T·k, d)
     y_tok = y_tok * (w_f * keep).to(x.dtype)[:, None]
     return y_tok.view(T, k, d).sum(dim=1).reshape(B, S, d)
+
+
+def _sharded_dispatch(params, spec: MoESpec, x, weights, ids, name: str, cap: int, pl):
+    """`_gather_dispatch` on DTensors, each rank building only its own
+    part of the (E, C, d) buffer, on the placements `pl`
+    (`_expert_placements`).  Every rank takes every token's row and
+    routing (gathered over the batch axes: (T, d) and (T, k), where a
+    global buffer and its gathered rows are (E + 1, C, d) and (T·k, d)),
+    finds the slots that fall in its experts and its capacity range, and
+    gathers their rows.  The expert products run on those shards, and each
+    rank adds its slots' weighted outputs into a (T, d) partial sum that
+    the residual stream's pin reduces (where a replicated result would
+    gather every expert's output onto every rank).  Gradients come back as
+    partial sums onto the tokens and the routing weights."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    B, S, d = x.shape
+    T, k, E = B * S, spec.top_k, spec.n_experts
+    mesh = x.device_mesh
+    rep, part = [Replicate()] * mesh.ndim, [Partial()] * mesh.ndim
+
+    def everywhere(t, grad=part):
+        return t.redistribute(mesh, rep).to_local(grad_placements=grad)
+
+    xf = everywhere(x.reshape(T, d))
+    w_f = everywhere(weights.reshape(T * k))
+    ids_f = everywhere(ids.reshape(T * k), grad=None)
+    dev = xf.device
+    pos, keep = _slots(ids_f, E, cap)
+    (n_e, n_c, _), (e0, c0, _) = compute_local_shape_and_global_offset((E, cap, d), mesh, pl)
+    mine = keep & (ids_f >= e0) & (ids_f < e0 + n_e) & (pos >= c0) & (pos < c0 + n_c)
+    # each of the rank's slots: its token (T, a zero row, where no
+    # assignment fills it) and its combine weight; the last entry takes
+    # every assignment that is not the rank's
+    slot = torch.where(mine, (ids_f - e0) * n_c + (pos - c0), n_e * n_c)
+    tok_f = torch.arange(T * k, device=dev) // k
+    slot_tok = torch.full((n_e * n_c + 1,), T, dtype=torch.long, device=dev).scatter(0, slot, tok_f)[:-1]
+    slot_w = torch.zeros(n_e * n_c + 1, dtype=w_f.dtype, device=dev).scatter(0, slot, w_f * mine)[:-1]
+    rows = torch.cat([xf, xf.new_zeros(1, d)])[slot_tok]
+    xe = DTensor.from_local(rows.view(n_e, n_c, d), mesh, pl, shape=torch.Size((E, cap, d)),
+                            stride=(cap * d, d, 1))
+    ye = _expert_ffn(params, spec, xe, name).redistribute(mesh, pl).to_local()
+    contrib = ye.reshape(n_e * n_c, d) * slot_w.to(x.dtype)[:, None]
+    y = torch.zeros(T + 1, d, dtype=x.dtype, device=dev).index_add(0, slot_tok, contrib)[:T]
+    y = DTensor.from_local(y, mesh, part, shape=torch.Size((T, d)), stride=(d, 1), grad_placements=rep)
+    return y.reshape(B, S, d)

@@ -92,6 +92,22 @@ def segsum(log_a):
     return torch.where(mask, diff, -torch.inf)
 
 
+def _placed_as(t, ref):
+    """On DTensors, `t` on `ref`'s placements (both (batch, chunks, Q,
+    heads, ...): the batch and head dims mean the same in each; a local
+    slice where `t` is replicated), else `t`.  The SSD's products then run
+    on the heads that dt's shards hold; left replicated (B and C repeat
+    their groups over every head, and x comes out of the convolution
+    unsplit), they ran every head on every rank of the model axis."""
+    if not torch.distributed.is_available():
+        return t
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor) and isinstance(ref, DTensor) and t.placements != ref.placements:
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
+
+
 def ssd_chunked(x, dt, A, B, C, D, chunk: int, h0=None):
     """Chunked SSD scan with the reference's casts to x's dtype.
 
@@ -118,6 +134,7 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int, h0=None):
     dtc = dt.reshape(Bt, nc, Q, H).float()
     Bc = B.reshape(Bt, nc, Q, G, N).repeat_interleave(rep, dim=3)
     Cc = C.reshape(Bt, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    xc, Bc, Cc = (_placed_as(t, dtc) for t in (xc, Bc, Cc))
 
     log_a = dtc * A  # (Bt,nc,Q,H)
     log_a_h = log_a.permute(0, 1, 3, 2)  # (Bt,nc,H,Q)

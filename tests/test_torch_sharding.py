@@ -16,8 +16,13 @@ package's, on the CPU.
   per rank x ranks cover the unsharded step's count; no collective
   gathers whole vocabulary rows of the logits (the loss's logsumexp is
   reduced across the vocabulary's shards); deepseek-v2-236b's expert
-  products run E / model-ranks experts on a rank, forward and backward;
-  one decode plan with its cache pinned.
+  products run E / model-ranks experts on a rank, forward and backward,
+  and no rank builds every expert's buffer; qwen3-32b's prefill splits
+  its heads (per-rank FLOPs no more than the reference's); the serving
+  cells never build the whole embedding table; a decode cell's argument
+  bytes equal the reference's specs' shards; one decode plan with its
+  cache pinned.  The prefill plan on a one-rank mesh gives the plain
+  prefill bit for bit.
 - Numbers: a 2-rank gloo run (spawned processes) of the sharded loss, its
   gradients and `plan_train`'s step with the vocabulary sharded over
   "model", against the unsharded step in float32: the losses and the
@@ -302,6 +307,9 @@ def _unsharded_flops(cfg, shape) -> int:
 
 MINI_ARCHS = ("qwen3-32b", "deepseek-v2-236b", "zamba2-1.2b")
 MINI_KINDS = ("train", "prefill")
+#: the mini dry-run's decode cell: qwen3-32b on 2 x 2 x 2, its cache pinned
+#: (its 2 kv heads split over "model", so the pin moves them)
+MINI_DECODE = shapes.ShapeSpec("d", 32, 8, "decode")
 
 
 def _mini_dryrun_worker(multi: bool, out: str) -> None:
@@ -321,6 +329,11 @@ def _mini_dryrun_worker(multi: bool, out: str) -> None:
                 rec = dryrun.trace_cell(cfg, shape, make_test_mesh(multi_pod=multi))
             recs[f"{arch}/{kind}"] = dict(rec, unsharded_flops=_unsharded_flops(cfg, shape),
                                           group_outlived=dist.is_initialized())
+    if multi:
+        cfg = get_reduced("qwen3-32b").replace(vocab=512, attn_impl="chunked")
+        with fake_world(8):
+            rec = dryrun.trace_cell(cfg, MINI_DECODE, make_test_mesh(multi_pod=True), pin_cache=True)
+        recs["qwen3-32b/decode"] = dict(rec, group_outlived=dist.is_initialized())
     with open(out, "w") as f:
         json.dump(recs, f)
 
@@ -350,6 +363,9 @@ def test_mini_dryrun_prefill_cells_on_the_test_meshes(spawned, arch, multi):
     assert rec["cost"]["flops"] * 8 >= rec["unsharded_flops"] > 0
     assert rec["memory"]["peak_memory_in_bytes"] >= rec["memory"]["argument_size_in_bytes"] > 0
     assert 0 < rec["largest_output"]["bytes"] <= rec["memory"]["peak_memory_in_bytes"]
+    # no rank builds the whole embedding table (the prefill plan keeps it on
+    # its vocabulary shards and all-reduces the looked-up rows)
+    assert rec["whole_table_ops"] == {}
     shape = shapes.ShapeSpec("t", 32, 8, "prefill")
     row = roofline.analyze_cell(dict(rec, arch=arch, shape="t", mesh="test"), shape)
     assert row["dominant"] in ("compute", "memory", "collective") and row["useful_ratio"] > 0
@@ -397,10 +413,11 @@ def test_moe_experts_run_on_their_shards(spawned, kind, multi):
     batch ranks of the capacity C = 256 (all tokens) slots: the products
     with an operand or result of the expert weights' (d, f) or (f, d)
     trailing dims (no other product of the cell has them), each of
-    2 (E / model) (C / batch) d f FLOPs.  The rank's FLOPs against an even
-    8-way split of the unsharded step are no more than the reference's on
-    the same cell (the reference's XLA count takes in elementwise work
-    too)."""
+    2 (E / model) (C / batch) d f FLOPs.  No rank builds the global (E + 1,
+    C, d) dispatch buffer or the (E, C, d) outputs of every expert.  The
+    rank's FLOPs against an even 8-way split of the unsharded step are no
+    more than the reference's on the same cell (the reference's XLA count
+    takes in elementwise work too)."""
     from repro_torch.models import moe
 
     rec = _results(*spawned[f"dryrun_{multi}"])[f"deepseek-v2-236b/{kind}"]
@@ -416,9 +433,90 @@ def test_moe_experts_run_on_their_shards(spawned, kind, multi):
     assert len(experts) >= 2 and cap == 256, rec["bmm_shapes"]
     assert {a[0] for a, _ in experts} == {spec.n_experts // parts}, experts
     assert {a[0] * a[1] * a[2] * b[2] for a, b in experts} == {spec.n_experts // parts * cap // rows * d * f}, experts
+    # no rank builds the whole dispatch buffer or every expert's outputs:
+    # each builds its own slots and adds their outputs into a partial sum
+    assert rec["global_expert_ops"] == {}, rec["global_expert_ops"]
     ratio = rec["cost"]["flops"] * 8 / rec["unsharded_flops"]
     print(f"deepseek-v2-236b {kind} {'2x2x2' if multi else '2x4'}: per-rank FLOPs {ratio:.2f}x an even split")
     assert 1.0 <= ratio <= REFERENCE_MOE_FLOPS_RATIO[kind, multi]
+
+
+#: `tools/dryrun_flops_ratio.py --package jax`: the reference's per-rank
+#: FLOPs against an even 8-way split on qwen3-32b's mini prefill cell, 2 x 4
+REFERENCE_DENSE_PREFILL_FLOPS_RATIO = 1.5931
+
+
+def test_dense_prefill_splits_its_heads_over_the_model_axis(spawned):
+    """qwen3-32b's prefill on 2 x 4: the chunked attention runs each rank's
+    own heads (its 4 query heads split 4 ways, its 2 kv heads replicated),
+    so the rank's FLOPs against an even split of the unsharded step are no
+    more than the reference's (the attention ran every head on every rank
+    of the model axis: 2.66x)."""
+    rec = _results(*spawned["dryrun_False"])["qwen3-32b/prefill"]
+    ratio = rec["cost"]["flops"] * 8 / rec["unsharded_flops"]
+    print(f"qwen3-32b prefill 2x4: per-rank FLOPs {ratio:.2f}x an even split")
+    assert 1.0 <= ratio <= REFERENCE_DENSE_PREFILL_FLOPS_RATIO
+    # each attention product holds B / 2 rows of 4 / 4 heads
+    assert {a[0] for a, b, _ in rec["bmm_shapes"] if a[1] == 32 and 512 in (a[2], b[2])} == {4 * 1}
+
+
+def test_prefill_plan_on_a_one_rank_mesh_is_the_plain_prefill_bit_for_bit():
+    """`plan_prefill` on a one-rank gloo mesh (the attention on its shards,
+    the embedding table on its vocabulary shards, the residual stream
+    pinned) gives the plain prefill's last logits and cache bit for bit."""
+    from repro_torch.launch.mesh import make_device_mesh
+
+    cfg = get_reduced("qwen3-32b").replace(vocab=512, attn_impl="chunked", param_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(2),
+                                     dtype=torch.int32)}
+    want = model.prefill(params, batch)
+    mesh = make_device_mesh("cpu")
+    try:
+        fn, in_pl, _, _ = steps.plan_prefill(cfg, shapes.ShapeSpec("p", 24, 2, "prefill"), mesh)
+        got = fn(*shd.distribute((params, batch), in_pl, mesh))
+    finally:
+        dist.destroy_process_group()
+    pairs = list(zip(tree.leaves(got), tree.leaves(want)))
+    assert len(pairs) == 1 + 2 * cfg.n_layers
+    for g, w in pairs:
+        assert torch.equal(g.full_tensor(), w)
+
+
+class FakeMesh3:  # the 2 x 2 x 2 test mesh's names and sizes, for the reference's rules
+    axis_names = ("pod", "data", "model")
+    shape = {"pod": 2, "data": 2, "model": 2}
+
+
+def test_mini_dryrun_decode_cell(spawned):
+    """The mini dry-run's decode cell (qwen3-32b, cache pinned, 2 x 2 x 2):
+    a rank's argument bytes equal, to the byte, the shards that the
+    reference's specs give its parameters, cache and tokens (the port's
+    position is a Python int); the pin gathers each layer's k and v
+    shards off the model axis, (B / 4, S, kv heads / 2, D) each; and no
+    rank builds the whole embedding table."""
+    rec = _results(*spawned["dryrun_True"])["qwen3-32b/decode"]
+    assert not rec["group_outlived"] and rec["n_devices"] == 8
+    jcfg = jget_reduced("qwen3-32b").replace(vocab=512)
+    jmesh, rules = FakeMesh3(), jshd.rules_train(FakeMesh3())
+    jparams, jspecs = jbuild(jcfg).init(jax.random.PRNGKey(0), abstract=True)
+    inputs = jshapes.input_specs(jcfg, jshapes.ShapeSpec("d", MINI_DECODE.seq_len, MINI_DECODE.global_batch,
+                                                         "decode"))
+
+    def shard_bytes(ax, arr):
+        spec = jshd.resolve_spec(ax, arr.shape, jmesh, rules)
+        div = math.prod(jshd._axes_size(jmesh, p) for p in spec if p is not None)
+        return math.prod(arr.shape) * np.dtype(arr.dtype).itemsize // div
+
+    leaves = [(jspecs, jparams), (jbuild(jcfg).cache_axes(inputs["cache"]), inputs["cache"]),
+              (("batch",), inputs["tokens"])]
+    want = sum(sum(jax.tree.leaves(jax.tree.map(shard_bytes, ax, tr, is_leaf=_is_axes))) for ax, tr in leaves)
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    cfg = get_reduced("qwen3-32b")
+    kv = [MINI_DECODE.global_batch // 4, MINI_DECODE.seq_len, cfg.n_kv_heads // 2, cfg.head_dim]
+    assert ["all-gather", "model", kv, [2 * kv[0], *kv[1:]], 2 * cfg.n_layers] in rec["collective_shapes"]
+    assert rec["whole_table_ops"] == {}
 
 
 def test_decode_plan_pins_its_cache(world):

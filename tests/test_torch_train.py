@@ -233,6 +233,22 @@ def test_prefill_and_decode_steps_are_the_models():
     assert torch.equal(got, want)
 
 
+def test_decode_specs_equal_a_full_length_prefills_cache():
+    """A decode cell's cache stand-ins (a short meta prefill grown to the
+    cell's length) have the leaves, shapes and dtypes of a meta prefill at
+    the full length, for every config's family."""
+    from repro_torch.models.lm import build_model
+
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        S = shapes.SHORT_PREFILL + cfg.vision_patches + 9
+        got = shapes.input_specs(cfg, shapes.ShapeSpec("d", S, 3, "decode"))["cache"]
+        model = build_model(cfg.replace(attn_impl="chunked", ssm_impl="jnp"))
+        _, want = model.prefill(model.init(device="meta"), shapes._batch(cfg, 3, S, labels=False))
+        assert [(t.shape, t.dtype) for t in tree.leaves(got)] == [(t.shape, t.dtype) for t in tree.leaves(want)], arch
+        assert all(t.device.type == "meta" for t in tree.leaves(got))
+
+
 def test_input_specs_and_abstract_state_match_the_reference():
     for arch in ARCH_IDS:
         cfg, jcfg = get_config(arch), jget_config(arch)

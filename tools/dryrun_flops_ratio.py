@@ -31,7 +31,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-ARCHS = ("deepseek-v2-236b", "moonshot-v1-16b-a3b", "qwen3-32b")
+ARCHS = ("deepseek-v2-236b", "moonshot-v1-16b-a3b", "qwen3-32b", "zamba2-1.2b")
 KINDS = ("train", "prefill")
 MESHES = {"2x4": False, "2x2x2": True}
 
