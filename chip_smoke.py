@@ -11,7 +11,11 @@ JAX package.  Phases, one JSON line each:
   build     nvcc build of every kernel of the path (csrc/*.cu), in seconds
   kernels   each kernel against its plain PyTorch version on the card at the
             main path's shapes, with its time, its bound and the plain time;
-            kw_queue at loads 0.7, 0.85 and 1.2 (saturated), c = 4 and 1
+            kw_queue at loads 0.7, 0.85 and 1.2 (saturated), c = 4 and 1;
+            flash_attention at the prefill shapes of zamba2-1.2b, moonshot,
+            stablelm-3b, gemma-2b and qwen3-32b (each on the Hopper kernel,
+            timed beside scaled_dot_product_attention and the mma.sync
+            kernel on the same inputs), every case naming its kernel path
   frontier  `frontier` on the Job 1 trace at full width: n=1026 tasks,
             c=4 gang blocks, 2048 jobs × 16 trials, 8 policies × 4 loads
   policy_search  the controller's inner loop at the ρ=0.7 load
@@ -143,8 +147,16 @@ JAX package.  Phases, one JSON line each:
             and memory terms (predicted MFU) against the measured plain step
             (read MFU).  Neither phase launches one of the four kernels
 
+The serving phases (`serve_moe`, `configs`, `serve`, `fleet_serve`) also
+hold every bf16 flash launch of their main paths, and every checked call,
+to the Hopper (TMA and wgmma) kernel by `flash_attention.launches_by_path`;
+the line `launches` carries those counts by phase.
+
 The profilers run after every timed phase: `obs.kernel_profile` over one
-re-plan's search (phase `fleet_adaptive_profile`), one more training step,
+re-plan's search (phase `fleet_adaptive_profile`), the device kernels of
+one scaled_dot_product_attention call at each timed flash shape (phase
+`sdpa_kernels`: the yardstick of flash_attention's `library_ms`), one more
+training step,
 its gradient and its AdamW update under torch.profiler (phase
 `train_profile`: launches, device ms by kernel), then, with `--profile`,
 one request's prefill and 8 decode steps (phase `serve_profile`), the
@@ -280,9 +292,12 @@ FULL = dict(
     kw_shape=(512, 2048), kw_loads=(0.7, 0.85, 1.2), residual_shape=(32768, 103, 3),
     kernel_reps=20, plain_reps=3, mc_reps=4000,
     # one Zamba2-1.2B prefill of 1024 tokens: attention (B, S, H, D) and
-    # SSM (Bt, S, H, P, G, N, chunk), both bf16; then one moonshot-v1-16b-a3b
-    # prefill's attention (timed too)
-    flash_shapes=((1, 1024, 32, 64), (1, 1024, 16, 128)), ssd_shape=(1, 1024, 64, 64, 1, 64, 128),
+    # SSM (Bt, S, H, P, G, N, chunk), both bf16; then the attention of one
+    # 1024-token prefill of moonshot-v1-16b-a3b, stablelm-3b, gemma-2b (its
+    # one kv head expanded to 8) and qwen3-32b (timed too)
+    flash_shapes=((1, 1024, 32, 64), (1, 1024, 16, 128), (1, 1024, 32, 80), (1, 1024, 8, 256),
+                  (1, 1024, 64, 128)),
+    ssd_shape=(1, 1024, 64, 64, 1, 64, 128),
     flash_cases=FLASH_CASES + FLASH_BF16_CASES + FLASH_D16_CASES, ssd_cases=SSD_CASES + SSD_BF16_CASES,
     serve=dict(arch="zamba2-1.2b", reduced=False, requests=8, batches=2, prompt=1024, steps=32),
     # moonshot-v1-16b-a3b at full width and depth: 2 batches x 4 requests of
@@ -406,11 +421,29 @@ def uncounted():
 
     kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)
     saved = [k.launches for k in kernels]
+    by_path = dict(ops.flash_attention.launches_by_path)
     try:
         yield
     finally:
         for k, n in zip(kernels, saved):
             k.launches = n
+        ops.flash_attention.launches_by_path = by_path
+
+
+def reset_flash() -> None:
+    """flash_attention's launch counters, in all and by kernel path, to 0."""
+    from repro_torch.kernels import ops
+
+    ops.flash_attention.launches = 0
+    ops.flash_attention.launches_by_path = dict.fromkeys(ops.flash_attention.launches_by_path, 0)
+
+
+def hopper_only(want: int) -> dict:
+    """flash_attention's launches by path when all `want` went through the
+    Hopper (TMA and wgmma) kernel."""
+    from repro_torch.kernels import ops
+
+    return {p: (want if p == "wgmma_tma" else 0) for p in ops.flash_attention.launches_by_path}
 
 
 def job1_trace():
@@ -499,10 +532,13 @@ def _close(torch, got, want, rtol, atol, what) -> float:
 
 
 def flash_kernel_cases(torch, device, sizes, g, flush) -> list:
-    """flash_attention against its plain version: the serve shapes (first,
-    causal bf16, timed, with the bound and scaled_dot_product_attention's
-    time), then `sizes["flash_cases"]` (FLASH_CASES, FLASH_BF16_CASES and
-    FLASH_D16_CASES at full size)."""
+    """flash_attention against its plain version: the main paths' prefill
+    shapes (first, causal bf16, timed, with the bound,
+    scaled_dot_product_attention's time and, on the card, the mma.sync
+    kernel's on the same inputs), then `sizes["flash_cases"]` (FLASH_CASES,
+    FLASH_BF16_CASES and FLASH_D16_CASES at full size).  Each case names
+    the kernel path that took it."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     timed = [(*shape, True, "bfloat16") for shape in sizes["flash_shapes"]]
@@ -511,12 +547,21 @@ def flash_kernel_cases(torch, device, sizes, g, flush) -> list:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn((b, s, h, d), generator=g, device=device).to(dtype) for _ in range(3))
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        by_path = dict(flash_attention.launches_by_path)
         err = _close(torch, flash_attention(q, k, v, causal=causal), flash_attention_plain(q, k, v, causal=causal),
                      tol, tol, f"flash_attention {(b, s, h, d, causal, dt)}")
-        case = dict(shape=[b, s, h, d], causal=causal, dtype=dt, max_abs_err=err)
+        path = [p for p, n in flash_attention.launches_by_path.items() if n != by_path[p]]
+        case = dict(shape=[b, s, h, d], causal=causal, dtype=dt, max_abs_err=err, path=path[0] if path else "plain")
         if i < len(timed):
             elt = q.element_size()
             pairs = s * (s + 1) // 2 if causal else s * s
+            if device.type == "cuda":
+                check(path == ["wgmma_tma"], f"flash_attention {(b, s, h, d)} took the wgmma_tma kernel, not {path}")
+                mma = fa.launch(q, k, v, causal, "mma_sync")
+                case["mma_sync_max_abs_err"] = _close(torch, mma, flash_attention_plain(q, k, v, causal=causal), tol, tol,
+                                                      f"flash_attention {(b, s, h, d)} on mma_sync")
+                case["mma_sync_ms"] = time_ms(torch, lambda: fa.launch(q, k, v, causal, "mma_sync"),
+                                              sizes["kernel_reps"], device, flush, ahead=True)
             case.update(
                 ms=time_ms(torch, lambda: flash_attention(q, k, v, causal=causal), sizes["kernel_reps"], device, flush, ahead=True),
                 plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v, causal=causal), sizes["plain_reps"], device),
@@ -1801,6 +1846,21 @@ def profiled(torch, fn, top_n: int = 12, named: tuple = ()) -> dict:
                     key=lambda e: e.time_range.start)])
 
 
+def phase_sdpa_kernels(torch, device, sizes) -> None:
+    """The yardstick of flash_attention's `library_ms`: the device kernels
+    that one scaled_dot_product_attention call runs at each timed prefill
+    shape, by torch.profiler (on the card only: the port never calls it)."""
+    if device.type != "cuda":
+        return
+    g = torch.Generator(device=device).manual_seed(5)
+    rows = []
+    for b, s, h, d in sizes["flash_shapes"]:
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device=device).bfloat16() for _ in range(3))
+        prof = profiled(torch, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True))
+        rows.append(dict(shape=[b, s, h, d], kernels=[t["name"] for t in prof["top"]]))
+    emit("sdpa_kernels", shapes=rows)
+
+
 def phase_profile(torch, device, sizes) -> None:
     """One full-width `frontier` call under torch.profiler: device time by
     kernel (the KW queue's kernels by name), and the device's idle share of
@@ -1910,7 +1970,11 @@ def checked_kernels(torch, errors: dict):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
     def flash(q, k, v, *, causal=True):
+        before = dict(flash_attention.launches_by_path)
         out = flash_attention(q, k, v, causal=causal)
+        if q.is_cuda and q.dtype == torch.bfloat16:
+            check(flash_attention.launches_by_path == {**before, "wgmma_tma": before["wgmma_tma"] + 1},
+                  f"flash_attention on the prefill's inputs {tuple(q.shape)} took the Hopper kernel")
         tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
         err = _close(torch, out, flash_attention_plain(q, k, v, causal=causal), tol, tol,
                      f"flash_attention on the prefill's inputs {tuple(q.shape)}")
@@ -2015,7 +2079,7 @@ def phase_serve(torch, device, sizes) -> dict:
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0
+    reset_flash()
     ops.ssd_scan.launches = 0
     t0 = time.perf_counter()
     res = serve.run(serve.parse_args(argv), log=lambda line: emit("serve_log", line=line))
@@ -2023,6 +2087,7 @@ def phase_serve(torch, device, sizes) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": ops.flash_attention.launches, "ssd_scan": ops.ssd_scan.launches}
+    flash_paths = dict(ops.flash_attention.launches_by_path)
     peak = torch.cuda.max_memory_allocated() if cuda else None
 
     model, params, cfg = res.model, res.params, res.model.config
@@ -2034,6 +2099,8 @@ def phase_serve(torch, device, sizes) -> dict:
     if cuda:
         want = {"flash_attention": len(model._hybrid_segments()) * served, "ssd_scan": cfg.n_layers * served}
         check(launches == want, f"kernel launches on the serve path {launches} == {want}")
+        check(flash_paths == hopper_only(want["flash_attention"]),
+              f"every flash launch of the serve path on the Hopper kernel: {flash_paths}")
 
     tokens = torch.as_tensor(res.requests[0], dtype=torch.int32, device=device)[None, :]
     errors: dict = {}
@@ -2057,11 +2124,11 @@ def phase_serve(torch, device, sizes) -> dict:
          decode_ms_per_token=dict(first=decode_ms_tok[0], median=float(np.median(decode_ms_tok[1:] or decode_ms_tok))),
          prefill_tokens_per_s=sv["prompt"] * served / sum(res.prefill_s),
          decode_tokens_per_s=(steps - 1) * served / sum(res.decode_s),
-         tokens_per_s=steps * served / wall, peak_bytes=peak, launches=launches,
+         tokens_per_s=steps * served / wall, peak_bytes=peak, launches=launches, flash_paths=flash_paths,
          batches=[dataclasses.asdict(st) for st in res.stats],
          final_policy=res.stats[-1].policy, controller_policy=res.server.controller.current_policy().label(),
          kernel_calls_vs_plain_max_abs_err=errors, bfloat16=bf16, float32=f32)
-    return launches, res
+    return launches, flash_paths, res
 
 
 @contextlib.contextmanager
@@ -2137,11 +2204,12 @@ def phase_serve_moe(torch, device, sizes) -> None:
 
     sv = sizes["serve_moe"]
     cuda = device.type == "cuda"
-    ops.flash_attention.launches = 0
+    reset_flash()
     ops.ssd_scan.launches = 0
     res, wall, peak = _timed_call(torch, device, lambda: serve.run(
         serve.parse_args(serve_argv(sv, device)), log=lambda line: emit("serve_moe_log", line=line)))
     launches = {"flash_attention": ops.flash_attention.launches, "ssd_scan": ops.ssd_scan.launches}
+    flash_paths = dict(ops.flash_attention.launches_by_path)
     prefill_ms = [t * 1e3 for t in res.prefill_s]
     decode_ms_tok = [t * 1e3 / (sv["steps"] - 1) for t in res.decode_s]
 
@@ -2154,6 +2222,8 @@ def phase_serve_moe(torch, device, sizes) -> None:
     if cuda:
         want = {"flash_attention": cfg.n_layers * served, "ssd_scan": 0}
         check(launches == want, f"kernel launches on the MoE serve path {launches} == {want}")
+        check(flash_paths == hopper_only(want["flash_attention"]),
+              f"every flash launch of the MoE serve path on the Hopper kernel: {flash_paths}")
 
     tokens = [torch.as_tensor(r, dtype=torch.int32, device=device)[None, :] for r in res.requests]
     S = tokens[0].shape[1]
@@ -2193,7 +2263,8 @@ def phase_serve_moe(torch, device, sizes) -> None:
          wall_s=wall, prefill_ms=dict(first=prefill_ms[0], median=float(np.median(prefill_ms[1:] or prefill_ms))),
          decode_ms_per_token=dict(first=decode_ms_tok[0],
                                   median=float(np.median(decode_ms_tok[1:] or decode_ms_tok))),
-         peak_bytes=peak, launches=launches, capacity_factor=cfg.moe.capacity_factor, capacity=cap,
+         peak_bytes=peak, launches=launches, flash_paths=flash_paths, capacity_factor=cfg.moe.capacity_factor,
+         capacity=cap,
          dropped_share=dropped, dropped_over_prefills=len(tokens), bounds=bounds,
          kernel_calls_vs_plain_max_abs_err=errors, bfloat16=bf16,
          float32=dict(f32, n_layers=L, reduced=f"n_layers {cfg.n_layers} -> {L}", bytes_on_card_before=left),
@@ -2252,11 +2323,14 @@ def serve_config(torch, device, cfg, cf: dict) -> dict:
     prompts = [rng.integers(0, cfg.vocab, size=cf["prompt"]) for _ in range(2)]
     serve_fn = RequestFn(model, params, cf["prompt"], cf["steps"], device, rng)
     before = ops.flash_attention.launches
+    paths_before = dict(ops.flash_attention.launches_by_path)
     outs = [serve_fn(p) for p in prompts]
     launches = ops.flash_attention.launches - before
+    flash_paths = {p: n - paths_before[p] for p, n in ops.flash_attention.launches_by_path.items()}
     want = 0 if cfg.mla is not None else cfg.n_layers * len(prompts)
     if cuda:
         check(launches == want, f"{cfg.arch_id}: flash launches {launches} == {want}")
+        check(flash_paths == hopper_only(want), f"{cfg.arch_id}: every flash launch on the Hopper kernel: {flash_paths}")
     check(all(o.shape == (cf["steps"],) for o in outs), f"{cfg.arch_id}: {cf['steps']} tokens a request")
     errors: dict = {}
     with uncounted(), routed_kernels(*checked_kernels(torch, errors)):
@@ -2268,7 +2342,7 @@ def serve_config(torch, device, cfg, cf: dict) -> dict:
                dtype=str(cfg.param_dtype), init_s=init_s, prompt=cf["prompt"], decode_steps=cf["steps"] - 1,
                prefill_ms=[t * 1e3 for t in serve_fn.prefill_s[:2]],
                decode_ms_per_token=[t * 1e3 / (cf["steps"] - 1) for t in serve_fn.decode_s[:2]],
-               flash_launches=launches, kernel_calls_vs_plain_max_abs_err=errors,
+               flash_launches=launches, flash_paths=flash_paths, kernel_calls_vs_plain_max_abs_err=errors,
                peak_bytes=torch.cuda.max_memory_allocated() if cuda else None)
     if cfg.mla is not None:
         row["mla_decode"] = mla_decode_check(torch, model, params, prompts[0], device)
@@ -2463,6 +2537,8 @@ def phase_fleet_serve(torch, device, sizes, served) -> dict:
     if device.type == "cuda":
         want = {"flash_attention": len(model._hybrid_segments()) * served_n, "ssd_scan": cfg.n_layers * served_n}
         check({k: launches[k] for k in want} == want, f"kernel launches of the served stream {launches} vs {want}")
+        check(ops.flash_attention.launches_by_path == hopper_only(want["flash_attention"]),
+              f"every flash launch of the served stream on the Hopper kernel: {ops.flash_attention.launches_by_path}")
         check(launches["kw_queue"] == len(calls) > 0, f"kw_queue launched by every re-plan ({launches['kw_queue']})")
     queues = queue_calls_bit_equal(torch, calls, "serving re-plan")
     ctrl = server.controller
@@ -2984,13 +3060,16 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     kw_queue.launches = 0
     phase_paper(torch, device, sizes)
     paths["paper"] = {"kw_queue": kw_queue.launches}
-    ops.flash_attention.launches = 0
+    flash_paths = {}
+    reset_flash()
     phase_serve_moe(torch, device, sizes)
     paths["serve_moe"] = {"flash_attention": ops.flash_attention.launches}
-    ops.flash_attention.launches = 0
+    flash_paths["serve_moe"] = dict(ops.flash_attention.launches_by_path)
+    reset_flash()
     phase_configs(torch, device, sizes)
     paths["configs"] = {"flash_attention": ops.flash_attention.launches}
-    paths["serve"], served = phase_serve(torch, device, sizes)
+    flash_paths["configs"] = dict(ops.flash_attention.launches_by_path)
+    paths["serve"], flash_paths["serve"], served = phase_serve(torch, device, sizes)
     kw_queue.launches = 0
     first_replan, adaptive_gates = phase_fleet_adaptive(torch, device, sizes)
     paths["fleet_adaptive"] = {"kw_queue": kw_queue.launches}
@@ -2998,18 +3077,21 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     emit("fleet_gates", gates=gate_map(gates))
     for kernel in (ops.kw_queue, ops.flash_attention, ops.ssd_scan):
         kernel.launches = 0
+    reset_flash()
     phase_fleet_serve(torch, device, sizes, served)
     paths["fleet_serve"] = {k: getattr(ops, k).launches for k in ("kw_queue", "flash_attention", "ssd_scan")}
+    flash_paths["fleet_serve"] = dict(ops.flash_attention.launches_by_path)
     trained = phase_train(torch, device, sizes)
     before = [k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)]
     sharded = phase_sharded_train(torch, device, sizes)
     phase_dryrun(torch, sizes, sharded)
     check([k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)] == before,
           "the sharded step and the dry-run launched none of the four kernels")
-    emit("launches", **paths)
+    emit("launches", **paths, flash_attention_by_path=flash_paths)
     # torch.profiler only after every timed phase, so that no timing
     # follows a profiler session
     phase_fleet_adaptive_profile(torch, device, first_replan)
+    phase_sdpa_kernels(torch, device, sizes)
     phase_train_profile(torch, device, trained)
     del trained
     free_device(torch, device)

@@ -23,7 +23,7 @@ import torch
 from repro_torch.core import Empirical, SingleForkPolicy
 from repro_torch.fleet import vector
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain, kernel_path
 from repro_torch.kernels.kw_queue import kw_queue_plain
 from repro_torch.kernels.residual_sampler import residual_sample_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -252,14 +252,7 @@ def test_flash_attention_kernel_matches_plain_on_card(B, S, H, D, causal, dtype)
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(S + D)
     q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype) for _ in range(3))
-    before = ops.flash_attention.launches
-    got = ops.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert ops.flash_attention.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    want = flash_attention_plain(q, k, v, causal=causal)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _flash_check(q, k, v, causal, 2e-2 if dtype == torch.bfloat16 else 2e-5)
 
 
 def test_flash_attention_kernel_refuses_head_dims_it_was_not_built_for():
@@ -313,8 +306,14 @@ def test_ssd_scan_kernel_refuses_widths_it_does_not_take():
         ops.ssd_scan(*args, chunk=16)
 
 
-# (B, Sq, Sk, H, D, causal): shapes that only the bf16 tensor-core kernel's
-# ragged, non-causal, D = 80 / 128 / 256 and Sq != Sk paths reach
+# (B, Sq, Sk, H, D, causal): shapes that only the bf16 tensor-core kernels'
+# ragged, non-causal, D = 80 / 128 / 256 and Sq != Sk paths reach; then the
+# Hopper kernel's edges: every head dim it takes at lengths that are not a
+# multiple of its 64-row query tiles or its key tiles (128, 64 at D = 256),
+# Sq != Sk both ways, and grids of many more items than the card's 132 SMs
+# (each block then works through several: neighbouring tiles, an odd tile
+# on its own, causal and not, D = 256's extra key tile that one
+# warpgroup skips)
 FLASH_BF16_CASES = [
     (2, 200, 200, 4, 64, True),
     (1, 256, 256, 4, 64, False),
@@ -324,14 +323,35 @@ FLASH_BF16_CASES = [
     (1, 96, 200, 4, 64, False),
     (1, 200, 96, 4, 64, True),
     (1, 64, 1000, 2, 128, True),
+    (1, 333, 333, 2, 64, True),
+    (2, 201, 201, 2, 80, True),
+    (1, 333, 333, 2, 80, False),
+    (2, 190, 190, 3, 128, True),
+    (1, 250, 250, 2, 256, True),
+    (1, 100, 300, 2, 128, True),
+    (1, 300, 100, 2, 128, True),
+    (1, 77, 333, 2, 256, False),
+    (1, 333, 77, 2, 80, True),
+    (4, 512, 512, 16, 64, True),
+    (2, 1024, 1024, 24, 128, False),
+    (4, 300, 300, 40, 64, True),
+    (1, 300, 300, 4, 128, True),
+    (2, 512, 512, 40, 256, True),
+    (3, 300, 300, 60, 80, False),
 ]
 
 
-def _flash_check(q, k, v, causal, tol):
+def _flash_check(q, k, v, causal, tol, path=None):
+    """One call against the plain version, counted once in all and once on
+    its path (`kernel_path`'s, or `path` where given)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    path = path or kernel_path(q.shape[3], q.dtype, aligned)
     before = ops.flash_attention.launches
+    by_path = dict(ops.flash_attention.launches_by_path)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.launches_by_path == {**by_path, path: by_path[path] + 1}
     assert got.dtype == q.dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -346,17 +366,19 @@ def test_flash_attention_bf16_tensor_core_cases_on_card(B, Sq, Sk, H, D, causal)
     _flash_check(q, k, v, causal, 2e-2)
 
 
-def test_flash_attention_bf16_reads_unaligned_inputs_on_card():
-    """Contiguous views that start 2 bytes past a 16-byte boundary take the
-    kernel's element-by-element copies instead of cp.async."""
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bf16_reads_unaligned_inputs_on_card(D):
+    """Contiguous views that start 2 bytes past a 16-byte boundary, which no
+    TMA map can describe, take the mma.sync kernel's element-by-element
+    copies instead of cp.async."""
     dev = _card()
-    shape = (1, 130, 2, 64)
+    shape = (1, 130, 2, D)
     n = int(np.prod(shape))
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v = (torch.randn(n + 1, generator=g, device=dev).bfloat16()[1:].view(shape)
                for _ in range(3))
     assert q.data_ptr() % 16 != 0
-    _flash_check(q, k, v, True, 2e-2)
+    _flash_check(q, k, v, True, 2e-2, path="mma_sync")
 
 
 def test_float32_inputs_keep_the_exact_paths_on_card():

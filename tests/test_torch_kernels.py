@@ -24,7 +24,7 @@ from repro.kernels import ref as jref
 from repro.models.ssm import ssd_chunked as jssd_chunked
 from repro_torch.fleet.vector import lindley
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import PATHS, flash_attention_plain, kernel_path
 from repro_torch.kernels.kw_queue import kw_queue_plain
 from repro_torch.kernels.residual_sampler import residual_sample_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -421,6 +421,42 @@ def test_flash_attention_plain_matches_reference_and_pallas(B, S, H, D, causal, 
     assert ref.flash_attention_ref is flash_attention_plain
 
 
+# (head dim, dtype, every input 16-byte aligned) -> the kernel that takes it:
+# the Hopper kernel at the main paths' head dims (64 zamba2, 80 stablelm-3b,
+# 128 moonshot / qwen3-32b / llava-next-34b, 256 gemma-2b) when aligned;
+# mma.sync for head dim 16 and for views TMA cannot describe; float32 on
+# the CUDA cores at every head dim
+FLASH_PATHS = [
+    (64, torch.bfloat16, True, "wgmma_tma"),
+    (80, torch.bfloat16, True, "wgmma_tma"),
+    (128, torch.bfloat16, True, "wgmma_tma"),
+    (256, torch.bfloat16, True, "wgmma_tma"),
+    (16, torch.bfloat16, True, "mma_sync"),
+    (64, torch.bfloat16, False, "mma_sync"),
+    (128, torch.bfloat16, False, "mma_sync"),
+    (256, torch.bfloat16, False, "mma_sync"),
+    (16, torch.bfloat16, False, "mma_sync"),
+    (64, torch.float32, True, "cuda_core"),
+    (256, torch.float32, False, "cuda_core"),
+    (16, torch.float32, True, "cuda_core"),
+]
+
+
+@pytest.mark.parametrize("D,dtype,aligned,path", FLASH_PATHS)
+def test_flash_attention_dispatch_rule(D, dtype, aligned, path):
+    assert kernel_path(D, dtype, aligned) == path
+    assert set(ops.flash_attention.launches_by_path) == set(PATHS)
+
+
+def test_flash_attention_dispatch_refuses_other_dtypes_and_counts_nothing_on_cpu():
+    with pytest.raises(TypeError, match="no kernel"):
+        kernel_path(64, torch.float16, True)
+    q = torch.randn((1, 8, 2, 64)).bfloat16()
+    before = dict(ops.flash_attention.launches_by_path)
+    ops.flash_attention(q, q, q)
+    assert ops.flash_attention.launches_by_path == before
+
+
 # tests/test_kernels.py's SSD_CASES: (Bt, S, H, P, G, N, chunk, dtype)
 SSD_CASES = [
     (2, 256, 4, 32, 1, 16, 64, "float32"),
@@ -483,8 +519,9 @@ def test_build_tag_hashes_the_shared_headers(monkeypatch, tmp_path):
 
 # The bf16 CUDA kernels' roundings, emulated in plain PyTorch on the CPU and
 # held to the reference at the bf16 tolerances above.  flash_attention: an
-# online softmax over key tiles of 64 rows (32 at D = 256) with P rounded
-# to bf16 before P·V, float32 accumulators, l summing the float32 p.
+# online softmax over key tiles (`_flash_key_tile`: the Hopper kernel's 128
+# rows, 64 at D = 256; the mma.sync kernel's 64, 32 at D = 256) with P
+# rounded to bf16 before P·V, float32 accumulators, l summing the float32 p.
 # ssd_scan: every product with a float32 operand takes that operand as
 # hi + lo, hi = bf16(v), lo = bf16(v - hi): the gated scores (times x), the
 # weighted x of the chunk states (times B) and the carried state (times C).
@@ -499,11 +536,19 @@ def _split(t):
     return hi + _bf16(t - hi)
 
 
-def flash_bf16_emulated(q, k, v, *, causal=True):
+def _flash_key_tile(D, path):
+    """Key rows a step of the bf16 kernel on `path` (csrc/flash_attention.cu:
+    HopTile<D>::BN, TcTile<D>::BK)."""
+    if path == "wgmma_tma":
+        return 128 if D <= 128 else 64
+    return 64 if D <= 128 else 32
+
+
+def flash_bf16_emulated(q, k, v, *, causal=True, path="wgmma_tma"):
     """The bf16 flash kernel's arithmetic on (B, S, H, D) tensors."""
     Sq, D = q.shape[1], q.shape[3]
     Sk = k.shape[1]
-    block = 64 if D <= 128 else 32
+    block = _flash_key_tile(D, path)
     qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     m = torch.full(qf.shape[:3], -(2.0**30))
     l = torch.zeros(qf.shape[:3])
@@ -544,12 +589,14 @@ def test_flash_bf16_kernel_roundings_match_reference_and_pallas(B, Sq, Sk, H, D,
     q = jnp.asarray(rng.standard_normal((B, Sq, H, D), np.float32), jnp.bfloat16)
     k, v = (jnp.asarray(rng.standard_normal((B, Sk, H, D), np.float32), jnp.bfloat16)
             for _ in range(2))
-    got = flash_bf16_emulated(*(_to_torch(a, "bfloat16") for a in (q, k, v)), causal=causal)
-    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, D)
-    for want in (jref.flash_attention_ref(q, k, v, causal=causal),
-                 jops.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)):
-        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                                   rtol=2e-2, atol=2e-2)
+    wants = (jref.flash_attention_ref(q, k, v, causal=causal),
+             jops.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk))
+    for path in ("wgmma_tma", "mma_sync"):
+        got = flash_bf16_emulated(*(_to_torch(a, "bfloat16") for a in (q, k, v)), causal=causal, path=path)
+        assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, D)
+        for want in wants:
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                       rtol=2e-2, atol=2e-2)
 
 
 def ssd_bf16_emulated(x, dt, A, B, C, D, *, chunk: int = 128):
