@@ -15,7 +15,11 @@ JAX package.  Phases, one JSON line each:
             flash_attention at the prefill shapes of zamba2-1.2b, moonshot,
             stablelm-3b, gemma-2b and qwen3-32b (each on the Hopper kernel,
             timed beside scaled_dot_product_attention and the mma.sync
-            kernel on the same inputs), every case naming its kernel path
+            kernel on the same inputs); ssd_scan at zamba2-1.2b's prefill
+            shape and mamba2-2.7b's geometry (each on the Hopper kernel,
+            timed beside the mma_sync kernel on the same inputs, with the
+            clusters the card holds at once); every case naming its kernel
+            path
   frontier  `frontier` on the Job 1 trace at full width: n=1026 tasks,
             c=4 gang blocks, 2048 jobs × 16 trials, 8 policies × 4 loads
   policy_search  the controller's inner loop at the ρ=0.7 load
@@ -149,8 +153,10 @@ JAX package.  Phases, one JSON line each:
 
 The serving phases (`serve_moe`, `configs`, `serve`, `fleet_serve`) also
 hold every bf16 flash launch of their main paths, and every checked call,
-to the Hopper (TMA and wgmma) kernel by `flash_attention.launches_by_path`;
-the line `launches` carries those counts by phase.
+to the Hopper (TMA and wgmma) kernel by `flash_attention.launches_by_path`,
+and (`serve`, `fleet_serve`) every ssd_scan launch to its Hopper kernel by
+`ssd_scan.launches_by_path`; the line `launches` carries those counts by
+phase, and the kernel table their sums by path.
 
 The profilers run after every timed phase: `obs.kernel_profile` over one
 re-plan's search (phase `fleet_adaptive_profile`), the device kernels of
@@ -297,7 +303,8 @@ FULL = dict(
     # one kv head expanded to 8) and qwen3-32b (timed too)
     flash_shapes=((1, 1024, 32, 64), (1, 1024, 16, 128), (1, 1024, 32, 80), (1, 1024, 8, 256),
                   (1, 1024, 64, 128)),
-    ssd_shape=(1, 1024, 64, 64, 1, 64, 128),
+    # the SSM of one Zamba2-1.2B prefill, then mamba2-2.7b's geometry (timed too)
+    ssd_shapes=((1, 1024, 64, 64, 1, 64, 128), (1, 1024, 80, 64, 1, 128, 128)),
     flash_cases=FLASH_CASES + FLASH_BF16_CASES + FLASH_D16_CASES, ssd_cases=SSD_CASES + SSD_BF16_CASES,
     serve=dict(arch="zamba2-1.2b", reduced=False, requests=8, batches=2, prompt=1024, steps=32),
     # moonshot-v1-16b-a3b at full width and depth: 2 batches x 4 requests of
@@ -421,13 +428,14 @@ def uncounted():
 
     kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)
     saved = [k.launches for k in kernels]
-    by_path = dict(ops.flash_attention.launches_by_path)
+    by_path = {k: dict(k.launches_by_path) for k in (ops.flash_attention, ops.ssd_scan)}
     try:
         yield
     finally:
         for k, n in zip(kernels, saved):
             k.launches = n
-        ops.flash_attention.launches_by_path = by_path
+        for k, paths in by_path.items():
+            k.launches_by_path = paths
 
 
 def reset_flash() -> None:
@@ -438,12 +446,20 @@ def reset_flash() -> None:
     ops.flash_attention.launches_by_path = dict.fromkeys(ops.flash_attention.launches_by_path, 0)
 
 
-def hopper_only(want: int) -> dict:
-    """flash_attention's launches by path when all `want` went through the
-    Hopper (TMA and wgmma) kernel."""
+def reset_ssd() -> None:
+    """ssd_scan's launch counters, in all and by kernel path, to 0."""
     from repro_torch.kernels import ops
 
-    return {p: (want if p == "wgmma_tma" else 0) for p in ops.flash_attention.launches_by_path}
+    ops.ssd_scan.launches = 0
+    ops.ssd_scan.launches_by_path = dict.fromkeys(ops.ssd_scan.launches_by_path, 0)
+
+
+def hopper_only(want: int, kernel: str = "flash_attention") -> dict:
+    """`kernel`'s (flash_attention's or ssd_scan's) launches by path when all
+    `want` went through its Hopper (TMA and wgmma) kernel."""
+    from repro_torch.kernels import ops
+
+    return {p: (want if p == "wgmma_tma" else 0) for p in getattr(ops, kernel).launches_by_path}
 
 
 def job1_trace():
@@ -576,13 +592,18 @@ def flash_kernel_cases(torch, device, sizes, g, flush) -> list:
 
 
 def ssd_kernel_cases(torch, device, sizes, g, flush) -> list:
-    """ssd_scan against its plain version: the serve shape (first, timed,
-    with the bound and the CUDA launches per call), then
-    `sizes["ssd_cases"]` (SSD_CASES and SSD_BF16_CASES at full size)."""
+    """ssd_scan against its plain version: the main path's shapes
+    (`sizes["ssd_shapes"]`, bf16, first, timed, with the bound, the CUDA
+    launches per call and, on the card, the mma_sync kernel's time and
+    error on the same inputs), then `sizes["ssd_cases"]` (SSD_CASES and
+    SSD_BF16_CASES at full size).  Each case names the kernel path that
+    took it."""
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES, ssd_scan, ssd_scan_plain
 
+    timed = [(*shape, "bfloat16") for shape in sizes["ssd_shapes"]]
     cases = []
-    for i, (bt, s, h, p, gr, n, q, dt) in enumerate(((*sizes["ssd_shape"], "bfloat16"), *sizes["ssd_cases"])):
+    for i, (bt, s, h, p, gr, n, q, dt) in enumerate((*timed, *sizes["ssd_cases"])):
         dtype = getattr(torch, dt)
         x = torch.randn((bt, s, h, p), generator=g, device=device).to(dtype)
         dts = torch.nn.functional.softplus(torch.randn((bt, s, h), generator=g, device=device))
@@ -593,18 +614,28 @@ def ssd_kernel_cases(torch, device, sizes, g, flush) -> list:
         args = (x, dts, A, Bm, Cm, Dv)
         rtol, atol = (5e-2, 2e-1) if dtype == torch.bfloat16 else (1e-3, 1e-3)
         what = f"ssd_scan {(bt, s, h, p, gr, n, q, dt)}"
+        by_path = dict(ssd_scan.launches_by_path)
         y, hf = ssd_scan(*args, chunk=q)
+        path = [k for k, c in ssd_scan.launches_by_path.items() if c != by_path[k]]
         y_p, hf_p = ssd_scan_plain(*args, chunk=q)
         err = max(_close(torch, y, y_p, rtol, atol, what + " y"), _close(torch, hf, hf_p, rtol, atol, what + " h_final"))
-        case = dict(shape=[bt, s, h, p, gr, n], chunk=q, dtype=dt, max_abs_err=err)
-        if i == 0:
+        case = dict(shape=[bt, s, h, p, gr, n], chunk=q, dtype=dt, max_abs_err=err, path=path[0] if path else "plain")
+        if i < len(timed):
             elt = x.element_size()
             nc = -(-s // q)
             macs = bt * h * nc * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
+            if device.type == "cuda":
+                check(path == ["wgmma_tma"], f"{what} took the wgmma_tma kernel, not {path}")
+                y_m, hf_m = ssd.launch(*args, q, "mma_sync")
+                case["mma_sync_max_abs_err"] = max(_close(torch, y_m, y_p, rtol, atol, what + " y on mma_sync"),
+                                                   _close(torch, hf_m, hf_p, rtol, atol, what + " h_final on mma_sync"))
+                case["mma_sync_ms"] = time_ms(torch, lambda: ssd.launch(*args, q, "mma_sync"), sizes["kernel_reps"],
+                                              device, flush, ahead=True)
+                case["hopper_clusters"] = ssd.hopper_clusters(p, n, nc, device)
             case.update(
                 ms=time_ms(torch, lambda: ssd_scan(*args, chunk=q), sizes["kernel_reps"], device, flush, ahead=True),
                 plain_ms=time_ms(torch, lambda: ssd_scan_plain(*args, chunk=q), sizes["plain_reps"], device),
-                library_ms=None, cuda_launches_per_call=CUDA_LAUNCHES[dtype],
+                library_ms=None, cuda_launches_per_call=CUDA_LAUNCHES[case["path"]] if path else 0,
                 bound=bound(2 * bt * s * h * p * elt + 2 * bt * s * gr * n * elt + bt * s * h * 4
                             + 2 * h * 4 + bt * h * p * n * 4, 2 * macs,
                             BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S),
@@ -1982,7 +2013,11 @@ def checked_kernels(torch, errors: dict):
         return out
 
     def ssd(x, dt, A, B, C, D, *, chunk=128):
+        before = dict(ssd_scan.launches_by_path)
         y, h = ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            check(ssd_scan.launches_by_path == {**before, "wgmma_tma": before["wgmma_tma"] + 1},
+                  f"ssd_scan on the prefill's inputs {tuple(x.shape)} took the Hopper kernel")
         y_p, h_p = ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
         rtol, atol = (5e-2, 2e-1) if x.dtype == torch.bfloat16 else (1e-3, 1e-3)
         what = f"ssd_scan on the prefill's inputs {tuple(x.shape)}"
@@ -2080,7 +2115,7 @@ def phase_serve(torch, device, sizes) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reset_flash()
-    ops.ssd_scan.launches = 0
+    reset_ssd()
     t0 = time.perf_counter()
     res = serve.run(serve.parse_args(argv), log=lambda line: emit("serve_log", line=line))
     if cuda:
@@ -2088,6 +2123,7 @@ def phase_serve(torch, device, sizes) -> dict:
     wall = time.perf_counter() - t0
     launches = {"flash_attention": ops.flash_attention.launches, "ssd_scan": ops.ssd_scan.launches}
     flash_paths = dict(ops.flash_attention.launches_by_path)
+    ssd_paths = dict(ops.ssd_scan.launches_by_path)
     peak = torch.cuda.max_memory_allocated() if cuda else None
 
     model, params, cfg = res.model, res.params, res.model.config
@@ -2101,6 +2137,8 @@ def phase_serve(torch, device, sizes) -> dict:
         check(launches == want, f"kernel launches on the serve path {launches} == {want}")
         check(flash_paths == hopper_only(want["flash_attention"]),
               f"every flash launch of the serve path on the Hopper kernel: {flash_paths}")
+        check(ssd_paths == hopper_only(want["ssd_scan"], "ssd_scan"),
+              f"every ssd_scan launch of the serve path on the Hopper kernel: {ssd_paths}")
 
     tokens = torch.as_tensor(res.requests[0], dtype=torch.int32, device=device)[None, :]
     errors: dict = {}
@@ -2125,10 +2163,10 @@ def phase_serve(torch, device, sizes) -> dict:
          prefill_tokens_per_s=sv["prompt"] * served / sum(res.prefill_s),
          decode_tokens_per_s=(steps - 1) * served / sum(res.decode_s),
          tokens_per_s=steps * served / wall, peak_bytes=peak, launches=launches, flash_paths=flash_paths,
-         batches=[dataclasses.asdict(st) for st in res.stats],
+         ssd_paths=ssd_paths, batches=[dataclasses.asdict(st) for st in res.stats],
          final_policy=res.stats[-1].policy, controller_policy=res.server.controller.current_policy().label(),
          kernel_calls_vs_plain_max_abs_err=errors, bfloat16=bf16, float32=f32)
-    return launches, flash_paths, res
+    return launches, flash_paths, ssd_paths, res
 
 
 @contextlib.contextmanager
@@ -2539,6 +2577,8 @@ def phase_fleet_serve(torch, device, sizes, served) -> dict:
         check({k: launches[k] for k in want} == want, f"kernel launches of the served stream {launches} vs {want}")
         check(ops.flash_attention.launches_by_path == hopper_only(want["flash_attention"]),
               f"every flash launch of the served stream on the Hopper kernel: {ops.flash_attention.launches_by_path}")
+        check(ops.ssd_scan.launches_by_path == hopper_only(want["ssd_scan"], "ssd_scan"),
+              f"every ssd_scan launch of the served stream on the Hopper kernel: {ops.ssd_scan.launches_by_path}")
         check(launches["kw_queue"] == len(calls) > 0, f"kw_queue launched by every re-plan ({launches['kw_queue']})")
     queues = queue_calls_bit_equal(torch, calls, "serving re-plan")
     ctrl = server.controller
@@ -3069,25 +3109,27 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     phase_configs(torch, device, sizes)
     paths["configs"] = {"flash_attention": ops.flash_attention.launches}
     flash_paths["configs"] = dict(ops.flash_attention.launches_by_path)
-    paths["serve"], flash_paths["serve"], served = phase_serve(torch, device, sizes)
+    ssd_paths = {}
+    paths["serve"], flash_paths["serve"], ssd_paths["serve"], served = phase_serve(torch, device, sizes)
     kw_queue.launches = 0
     first_replan, adaptive_gates = phase_fleet_adaptive(torch, device, sizes)
     paths["fleet_adaptive"] = {"kw_queue": kw_queue.launches}
     gates.update(adaptive_gates)
     emit("fleet_gates", gates=gate_map(gates))
-    for kernel in (ops.kw_queue, ops.flash_attention, ops.ssd_scan):
-        kernel.launches = 0
+    ops.kw_queue.launches = 0
     reset_flash()
+    reset_ssd()
     phase_fleet_serve(torch, device, sizes, served)
     paths["fleet_serve"] = {k: getattr(ops, k).launches for k in ("kw_queue", "flash_attention", "ssd_scan")}
     flash_paths["fleet_serve"] = dict(ops.flash_attention.launches_by_path)
+    ssd_paths["fleet_serve"] = dict(ops.ssd_scan.launches_by_path)
     trained = phase_train(torch, device, sizes)
     before = [k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)]
     sharded = phase_sharded_train(torch, device, sizes)
     phase_dryrun(torch, sizes, sharded)
     check([k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)] == before,
           "the sharded step and the dry-run launched none of the four kernels")
-    emit("launches", **paths, flash_attention_by_path=flash_paths)
+    emit("launches", **paths, flash_attention_by_path=flash_paths, ssd_scan_by_path=ssd_paths)
     # torch.profiler only after every timed phase, so that no timing
     # follows a profiler session
     phase_fleet_adaptive_profile(torch, device, first_replan)
@@ -3115,13 +3157,21 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:85"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:82"),
     }
-    return {"kernels": [
+    by_path = {"flash_attention": flash_paths, "ssd_scan": ssd_paths}
+    table = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
              max_abs_err=measured[name]["max_abs_err"], ms=measured[name]["ms"],
              plain_ms=measured[name]["plain_ms"], bound_ms=measured[name]["bound_ms"],
              bound_by=measured[name]["bound_by"], library_ms=measured[name].get("library_ms"))
         for name, (src, rep) in meta.items()
     ]}
+    for entry in table["kernels"]:
+        if entry["name"] in by_path:  # main-path launches by kernel path, summed over the phases
+            entry["launches_by_path"] = {}
+            for counts in by_path[entry["name"]].values():
+                for path, n in counts.items():
+                    entry["launches_by_path"][path] = entry["launches_by_path"].get(path, 0) + n
+    return table
 
 
 def main() -> int:

@@ -235,7 +235,7 @@ using tc::bf16;
 
 constexpr int kTcThreads = 256;  // 8 warps x 16 query rows
 constexpr int kTcBQ = 128;
-constexpr float kLog2e = 1.4426950408889634f;
+using hopper::kLog2e;
 
 template <int D>
 struct TcTile {
@@ -445,14 +445,9 @@ struct HopTile {
   static_assert(D % kBoxCols == 0, "head dim splits into whole boxes");
 };
 
-// 2^x on the SFU, flushing results below 2^-126 to 0 (a probability that
-// small adds nothing to a row's sum of at least 1): one MUFU.EX2, where
-// exp2f adds a range fix-up around it.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+// 2^x flushing results below 2^-126 to 0: a probability that small adds
+// nothing to a row's sum of at least 1.
+using hopper::exp2_ftz;
 
 // One block's work: two 64-row query tiles of one (b, h), the heavier
 // (more key tiles under causal) for warpgroup 1, and the number of key
@@ -832,56 +827,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// libcuda's cuTensorMapEncodeTiled, found through the runtime, so that
-// the library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The launch's own error codes, above the CUDA runtime's: libcuda's entry
-// point was not found, or libcuda refused a tensor map (kErrTensorMap +
-// CUresult).
-constexpr int kErrNoEncoder = 10000;
-constexpr int kErrTensorMap = 20000;
-
-// A (B, S, H, D) bf16 tensor as the 4-D map (D, H, S, B), read by strides,
-// in boxes of (box_cols, 1, rows, 1); rows past S read as zeros.
-int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int box_cols,
-               int rows, int sw) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(H) * D * 2;
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, static_cast<cuuint32_t>(rows),
-                             1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
-}
+using hopper::encode_map;
 
 template <int D>
 int launch_hopper(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,

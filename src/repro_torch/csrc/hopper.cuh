@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the bf16 attention kernel
-// (flash_attention.cu): mbarriers, TMA tensor loads, warpgroup matrix
-// multiplies (wgmma) and their shared-memory descriptors, register
-// rebalancing between warpgroups, named barriers.
+// Hopper (sm_90a) building blocks of the bf16 attention and SSD kernels
+// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA tensor loads and the
+// tensor maps they read, warpgroup matrix multiplies (wgmma) and their
+// shared-memory descriptors, register rebalancing between warpgroups,
+// named barriers, thread block clusters (ranks, distributed shared memory,
+// the cluster barrier).
 //
 // wgmma fragments, for a warpgroup of 4 warps (warp w of the group owns
 // rows 16w .. 16w + 15 of the 64-row tile; g = lane / 4, t = lane % 4):
@@ -26,6 +28,16 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU, flushing results below 2^-126 to 0: one MUFU.EX2, where
+// exp2f adds a range fix-up around it.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- mbarriers ----
@@ -77,6 +89,12 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Brings a tensor map (a __grid_constant__ kernel parameter) into the
+// cache ahead of its first load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // ---- warpgroups ----
@@ -153,32 +171,33 @@ __device__ __forceinline__ void named_bar_arrive(int count) {
 }
 
 // wgmma.m64nNk16, bf16 operands, float32 accumulators.  WgmmaSS: A and B
-// from shared memory, both K-major, d = A·B (accumulate = 0) or d += A·B.
+// from shared memory, d = A·B (accumulate = 0) or d += A·B; TA and TB are
+// the transpose flags, 0 for a K-major operand and 1 for an MN-major one.
 // WgmmaRS: A from registers, B from shared memory MN-major, d += A·B.
-template <int N>
+template <int N, int TA = 0, int TB = 0>
 struct WgmmaSS;
 template <int N>
 struct WgmmaRS;
 
-template <>
-struct WgmmaSS<64> {
+template <int TA, int TB>
+struct WgmmaSS<64, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 };
 
-template <>
-struct WgmmaSS<128> {
+template <int TA, int TB>
+struct WgmmaSS<128, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -187,7 +206,7 @@ struct WgmmaSS<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -196,7 +215,7 @@ struct WgmmaSS<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 };
 
@@ -297,5 +316,127 @@ struct WgmmaRS<256> {
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
   }
 };
+
+// ---- thread block clusters ----
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address in the cluster's shared window of the variable that lies at
+// `addr` in the shared memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// The cluster barrier, split: arrive (releasing this thread's writes) and
+// wait (acquiring those of every thread of the cluster that arrived).
+// Every thread of every block of the cluster takes part, whole warps at a
+// time.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// An arrival that orders nothing: for a barrier that only says "done
+// reading".
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Loads from and stores to a cluster address (`mapa`): distributed
+// shared memory.
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// An 8-byte store to a cluster address that completes its bytes on the
+// mbarrier at cluster address `bar`, in the same block as `addr`: the
+// receiving block waits on its own barrier for the bytes it expects.
+__device__ __forceinline__ void st_async_u32x2(uint32_t addr, uint32_t v0, uint32_t v1, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];\n" ::"r"(addr),
+               "r"(v0), "r"(v1), "r"(bar)
+               : "memory");
+}
+
+// Orders this thread's ordinary accesses to its block's shared memory
+// before later ones by the async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async_cta() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- tensor maps (host) ----
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime, so that
+// the library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The launches' own error codes, above the CUDA runtime's: libcuda's entry
+// point was not found, or libcuda refused a tensor map (kErrTensorMap +
+// CUresult).
+constexpr int kErrNoEncoder = 10000;
+constexpr int kErrTensorMap = 20000;
+
+// A (B, S, H, D) bf16 tensor (attention's q, k, v; the SSD's x, and its B
+// and C as (Bt, S, G, N)) as the 4-D map (D, H, S, B), read by strides, in
+// boxes of (box_cols, 1, rows, 1) with a 128- or 32-byte swizzle; rows
+// past S read as zeros.
+inline int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int box_cols,
+                      int rows, int sw) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(H) * D * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+}
 
 }  // namespace hopper

@@ -12,12 +12,52 @@
 // stored in x's type and h_final in float32.  Groups are indexed (h / (H /
 // G)) where the TPU wrapper repeated B and C, and the ragged last chunk is
 // masked (x = dt = B = C = 0 past S: the step's decay is exp(0) = 1 and its
-// input 0, which leaves h as the TPU wrapper's zero padding does).
-//
-// bfloat16 (what serving runs): chunk-parallel, two launches.  The TPU
+// input 0, which leaves h as the TPU wrapper's zero padding does).  The TPU
 // kernel carries h along a sequential grid axis; here the chunks of one
 // head run in parallel, split as the plain version (ssd_scan_plain) and the
-// reference's ssd_chunked split them:
+// reference's ssd_chunked split them.  Three kernels; the wrapper's
+// `kernel_path` picks one.
+//
+// bfloat16, chunk 128, P and N 64 or 128, at most 8 chunks, 16-byte aligned
+// x, B and C (every main-path call; "wgmma_tma"): one launch on Hopper.
+// - Work.  One block of two warpgroups per (chunk, head, batch row); the
+//   blocks of a (batch row, head) form a thread block cluster along the
+//   chunks (cudaLaunchKernelEx with a cluster dimension; the launch checks
+//   with cudaOccupancyMaxActiveClusters that one fits and fails otherwise).
+//   At P = N = 64 two blocks share an SM (83 KB of shared memory, 128
+//   registers a thread).
+// - Loads.  Thread 0 loads the chunk's x (Bt, S, H, P) and its group's B
+//   and C (Bt, S, G, N) by TMA, 4-D maps read by strides in 128-row boxes
+//   of 64 columns with the 128-byte swizzle, rows past S as zeros, onto
+//   one mbarrier; dt by ordinary loads, its cumsum by warp shuffles.
+// - Products on wgmma, every float32 operand split into bf16 hi + lo (two
+//   products, relative error 2^-18): the state (w ⊙ x)ᵀ·B with both
+//   operands MN-major (the weighted x written by the threads in x's
+//   swizzled layout), S = C·Bᵀ with both K-major (as Q·Kᵀ), Y = (S ⊙ L ⊙
+//   dt)·x with the scaled S from registers as the A operand (as P in
+//   flash attention) and x MN-major, and C·h_cᵀ with h K-major.  Rows 0-63
+//   need keys 0-63 only: warpgroup 0 takes them and the state, warpgroup 1
+//   rows 64-127 against all 128 keys; key blocks past a warp's rows are
+//   skipped, and L·dt is one exp2 an element, 2^(cs_i·log2 e + k_j) with
+//   k_j = log2(dt_j) - cs_j·log2 e (ex2.approx, lg2.approx).
+// - The chunk states never leave the chip.  Each block leaves its state
+//   (float32) and decay in shared memory and arrives at the cluster
+//   barrier.  Warpgroup 0 then runs the recurrence h_{c+1} = decay_c·h_c +
+//   state_c in float32 and the plain version's order, the cluster's blocks
+//   splitting the elements: each reads its elements' states from every
+//   block over distributed shared memory (mapa, ld.shared::cluster) and
+//   stores each block's h_c, bf16 hi and lo in the K-major layout C·hᵀ
+//   reads, into that block's shared memory by st.async, whose bytes
+//   complete on the receiving block's own mbarrier; the owner of an element
+//   writes its h_final.  Warpgroup 1 runs its intra-chunk product
+//   meanwhile, and warpgroup 0's overlaps its recurrence.  A second cluster
+//   barrier, waited for at the end, keeps every state in place until all
+//   blocks have read it.
+// - y = Y + exp(cs)·Z + D·x goes from the accumulators to device memory,
+//   4 bytes a store (a TMA store of the tile, staged over x, was slower).
+//
+// bfloat16 otherwise ("mma_sync": P = 16, N = 8, chunks other than 128,
+// more than 8 chunks, unaligned views): chunk-parallel, two launches.
 //   1. ssd_chunk_state_kernel, one block per (chunk, head, batch row):
 //      cs by a warp-shuffle scan, the chunk's own state
 //      Σ_j exp(cs_last - cs_j)·dt_j·x_jᵀ B_j (a (P x Q)·(Q x N) product) and
@@ -31,34 +71,33 @@
 //      C; then y = exp(cs)·C·h_cᵀ + (C·Bᵀ ⊙ L ⊙ dt)·x + D·x, each warp
 //      taking 16 rows and walking the key blocks of 16 up to its diagonal.
 // Products run as mma.sync.m16n8k16 on bf16 operands with float32
-// accumulators.  C·Bᵀ has two bf16 operands: one MMA, exact per product.
-// The other three have a float32 operand, split as hi + lo with hi =
-// bf16(v) and lo = bf16(v - hi) (16 significant bits, relative error
-// 2^-18), two MMAs each: the gated scores times x, the weighted x
-// (exp(cs_last - cs_j)·dt_j·x_j) times B for the state, and C times h_c.
-// Widths are padded to multiples of 16 with zeros in shared memory.  At
-// the serve shape the grid is Bt·H·nc = 512 blocks per launch for 132 SMs.
+// accumulators, the float32 operands split as above.  Widths are padded to
+// multiples of 16 with zeros in shared memory.
 //
-// float32 (1e-3 tolerance, exact float32 arithmetic): one block of 256
-// threads per (b, h) that loops over the chunks with the (P, N) state in
-// shared memory; 32-row tiles of the Q x Q score matrix against their
-// causal columns only; products on the CUDA cores.
+// float32 ("cuda_core"; 1e-3 tolerance, exact float32 arithmetic): one
+// block of 256 threads per (b, h) that loops over the chunks with the
+// (P, N) state in shared memory; 32-row tiles of the Q x Q score matrix
+// against their causal columns only; products on the CUDA cores.
 //
 // What bounds it on an H100.  At the serve shape (1, 1024, 64, 64), N = 64,
 // G = 1, Q = 128, bf16: x and y 8.4 MB each, B, C, dt and h_final 1.6 MB,
 // about 18 MB, 5.5 µs at 3.35 TB/s; 2.16 GFLOP, 2.2 µs at the bf16 rate.
-// On an NVIDIA H100 80GB HBM3 at 700.00 W the two launches take 0.074 ms
-// there (PERF.md; the sequential kernel, bound by its 64 blocks, took
-// 0.464 ms): about 48 µs the output pass and 20 µs the state pass.  Both
-// are latency-bound inside a block at 3-4 blocks per SM: staged loads,
-// the recurrence's reads of up to 7 earlier states from L2 (issued 16 at
-// a time per thread), and the triangular split of the rows over the warps.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md) the Hopper kernel takes
+// about 0.033 ms there, against 0.073 ms for the two mma.sync launches
+// (0.464 ms for the float32 kernel), and 0.061 against 0.199 ms at
+// mamba2-2.7b's (1, 1024, 80, 64), N = 128.  Neither bytes nor operations
+// set it: a block's chain of dependent steps (loads, products, the cluster
+// barrier, the recurrence over distributed shared memory, the stores), 6-9
+// µs, and the waves: 30 clusters of 8 blocks fit on the card at once, so
+// the serve shape's 64 clusters take 3 (tools/ssd_trace.py).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -661,6 +700,476 @@ int launch_chunked(const bf16* x, const float* dt, const float* A, const bf16* B
 #undef SSD_OUTPUT
 }
 
+// ---- bfloat16 on Hopper: one launch, a cluster of blocks per head ----
+
+constexpr int kHopQ = 128;        // chunk rows (the kernel takes chunk 128 only)
+constexpr int kHopThreads = 256;  // two warpgroups
+constexpr int kMaxCluster = 8;    // chunks a cluster holds (the portable cluster size)
+constexpr int kRegion = kHopQ * 128;  // a 64-column region of a Q-row tile: Q rows of 128 bytes
+
+// The launch's own error code for a cluster the card cannot schedule (no
+// cluster of that many blocks with this much shared memory fits).
+constexpr int kErrCluster = 30000;
+
+// Shared layout (bytes from a 1024-aligned base).  x, C and B as TMA wrote
+// them: 64-column regions of Q rows x 128 bytes, 128-byte swizzle.  Once
+// the block's own products have read B, its region takes the state that
+// enters the chunk, h (P x N, K-major for C·hᵀ: N/64 regions of P rows x
+// 128 bytes), as bf16 high then low parts, written there by the
+// cluster's blocks.  The weighted x's high and low parts (the layout of x)
+// later hold the chunk's own float32 state (P x N, pairs swizzled), which
+// the cluster's blocks read.  Then dt, cs, w, k = log2(dt) - cs·log2(e),
+// the scan's warp sums, the chunk's decay and two mbarriers: x, B and C
+// landed; h landed.
+template <int P, int N>
+struct HopSsd {
+  static constexpr uint32_t kX = kHopQ * P * 2;
+  static constexpr uint32_t kBC = kHopQ * N * 2;
+  static constexpr uint32_t kH = 2 * P * N * 2;
+  static constexpr uint32_t kBH = kBC > kH ? kBC : kH;
+  static constexpr uint32_t kWX = 2 * kX;
+  static constexpr uint32_t kXOff = 0;
+  static constexpr uint32_t kCOff = kXOff + kX;
+  static constexpr uint32_t kBOff = kCOff + kBC;
+  static constexpr uint32_t kWXOff = kBOff + kBH;
+  static constexpr uint32_t kVecOff = kWXOff + kWX;
+  static constexpr uint32_t kBarOff = kVecOff + (4 * kHopQ + 8 + 2) * 4;
+  static constexpr size_t kSmem = kBarOff + 16 + 1024;  // 1 KB to align the base
+  static constexpr uint32_t kTxBytes = kX + 2 * kBC;
+  static_assert(P % 64 == 0 && N % 64 == 0, "whole 64-column regions");
+  static_assert(P * N * 4 <= kWX, "the state fits where the weighted x was");
+};
+
+// Byte offset of element (row r, column col) in a tile of 64-column regions
+// of `rows` rows x 128 bytes with the 128-byte swizzle (16-byte chunk k of
+// row r at chunk k ^ (r % 8)).
+__device__ __forceinline__ uint32_t sw128(int r, int col, int rows) {
+  return static_cast<uint32_t>((col >> 6) * rows * 128 + r * 128 +
+                               ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2);
+}
+
+// The float32 state's pair (p, cp) (columns 2cp, 2cp + 1), in float2
+// units: rows of N / 2 pairs, the pair index XOR-ed with 4·(p % 8) so that
+// a warp's stores of its accumulator fragments spread over the banks.
+template <int N>
+__device__ __forceinline__ uint32_t state_pair(int p, int cp) {
+  return static_cast<uint32_t>(p * (N / 2) + (cp ^ ((p & 7) << 2)));
+}
+
+// Two floats split into bf16 hi (round to nearest) and lo = bf16(v - hi),
+// each pair packed, the lower column in the low half: tc::split_bf16's
+// roundings, two values an instruction where it can.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+using hopper::exp2_ftz;
+using hopper::kLog2e;
+
+// One warpgroup's work: rows 64·wg .. 64·wg + 63 of the chunk against keys
+// 0 .. KEYS - 1 (KEYS = 64 for rows 0-63, which need no later key; 128
+// for rows 64-127), the state's rows 64·wg' .. (P = 128: both groups; P =
+// 64: the lighter group 0 alone), the cluster's exchange, and the outputs.
+template <int P, int N, int KEYS>
+__device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t base, int tid, int c,
+                                                 int nc, int b, int h, int S, int H, int valid,
+                                                 float d_h, bf16* __restrict__ y,
+                                                 float* __restrict__ h_final) {
+  using L = HopSsd<P, N>;
+  constexpr bool kState = P == 128 || KEYS == 64;
+  constexpr int wg = KEYS == 64 ? 0 : 1;
+  constexpr int wr = P == 128 ? wg : 0;  // the 64 state rows this group computes
+  const float* dt_s = reinterpret_cast<const float*>(sm + L::kVecOff);
+  const float* cs_s = dt_s + kHopQ;
+  const float* k_s = cs_s + 2 * kHopQ;  // log2(dt_j) - cs_j·log2(e)
+  float* decay_s = const_cast<float*>(k_s) + kHopQ + 8;
+  const int wt = tid & 127, warp = wt >> 5, lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
+  const int row0 = 64 * wg + 16 * warp + g4;  // this thread's rows: row0, row0 + 8
+  const uint32_t x_s = base + L::kXOff, c_s = base + L::kCOff, b_s = base + L::kBOff;
+  const uint32_t wx_s = base + L::kWXOff;
+  const uint32_t hh_s = b_s, hl_s = b_s + P * N * 2;
+  const uint32_t h_bar = base + L::kBarOff + 8;
+  const uint32_t sw_hi = hopper::desc_hi(1024, 1);  // 8-row groups 1024 bytes apart, 128-byte swizzle
+  // k-step kk of a K-major operand: column region (16 kk) / 64, then 32
+  // bytes a step within it
+  auto kmaj = [](uint32_t tile, int kk, int rows) -> uint32_t {
+    return tile + static_cast<uint32_t>((kk * 16 >> 6) * rows * 128 + (kk * 16 & 63) * 2);
+  };
+
+  // S = C·Bᵀ (both K-major, as Q·Kᵀ) and the state (w ⊙ x)ᵀ·B (both
+  // MN-major: A is the weighted x, P along its rows' columns; B is B, N
+  // along them), hi then lo
+  float s[KEYS / 2];
+  float st[kState ? N / 2 : 1];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::WgmmaSS<KEYS>::run(s, hopper::desc(hopper::desc_lo(kmaj(c_s + 64 * wg * 128, kk, kHopQ), 16), sw_hi),
+                               hopper::desc(hopper::desc_lo(kmaj(b_s, kk, kHopQ), 16), sw_hi), kk > 0);
+  if constexpr (kState) {
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const uint32_t a_tile = wx_s + part * L::kX + wr * kRegion;
+#pragma unroll
+      for (int kk = 0; kk < kHopQ / 16; ++kk)
+        hopper::WgmmaSS<N, 1, 1>::run(st, hopper::desc(hopper::desc_lo(a_tile + kk * 2048, kRegion), sw_hi),
+                                      hopper::desc(hopper::desc_lo(b_s + kk * 2048, kRegion), sw_hi),
+                                      part > 0 || kk > 0);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  if constexpr (kState) hopper::fence_regs(st);
+
+  // the state, float32, where the weighted x was: once both groups' products
+  // have read it (P = 128)
+  if constexpr (P == 128) hopper::named_bar_sync<1>(kHopThreads);
+  if constexpr (kState) {
+    float2* st_s = reinterpret_cast<float2*>(sm + L::kWXOff);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2)
+        st_s[state_pair<N>(64 * wr + 16 * warp + g4 + 8 * r2, 4 * j + t4)] =
+            make_float2(st[4 * j + 2 * r2], st[4 * j + 2 * r2 + 1]);
+  }
+  if (tid == 0) *decay_s = expf(cs_s[kHopQ - 1]);
+  // This block is done with B, whose region the cluster's blocks may now
+  // fill with h, and its state is in place for them to read.
+  hopper::cluster_arrive();
+
+  // The recurrence h_{c+1} = decay_c·h_c + state_c, in float32 and in the
+  // plain version's order, element-wise, by group 0 (whose intra-chunk work
+  // is the lighter) while group 1 runs its intra-chunk product: the
+  // cluster's blocks split the P·N elements in groups of 4, each reading its
+  // elements' states from every block of the cluster and storing each
+  // block's h_c, as bf16 hi and lo in its K-major layout, into that block's
+  // shared memory (st.async, whose bytes complete on that block's h
+  // barrier); h_nc is h_final.  Group 0 issues its first group's loads,
+  // scales its S and issues its Y while they are in flight, then finishes
+  // the recurrence while Y runs.  Both groups then arrive at the second
+  // cluster barrier (relaxed: it orders reads), whose wait, at the end,
+  // keeps this block's state in place until every block is done with it.
+  const uint32_t rank = hopper::cluster_ctarank();
+  float dec[kMaxCluster];
+  float4 sv[kMaxCluster];
+  auto load_states = [&](int e4) {
+    const int p = e4 / (N / 4), n = 4 * (e4 % (N / 4));
+    const uint32_t so = state_pair<N>(p, n / 2) * 8;  // pairs n/2 and n/2 + 1: 16 bytes
+#pragma unroll
+    for (int cc = 0; cc < kMaxCluster; ++cc)
+      if (cc < nc) sv[cc] = hopper::ld_cluster_f32x4(hopper::mapa(wx_s + so, cc));
+  };
+  auto finish_states = [&](int e4) {
+    const int p = e4 / (N / 4), n = 4 * (e4 % (N / 4));
+    const uint32_t ho = sw128(p, n, P);
+    float4 hv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int cc = 0; cc < kMaxCluster; ++cc) {
+      if (cc >= nc) break;
+      if (cc > 0) {
+        uint32_t hi[2], lo[2];
+        split2(hv.x, hv.y, hi[0], lo[0]);
+        split2(hv.z, hv.w, hi[1], lo[1]);
+        const uint32_t bar_cc = hopper::mapa(h_bar, cc);
+        hopper::st_async_u32x2(hopper::mapa(hh_s + ho, cc), hi[0], hi[1], bar_cc);
+        hopper::st_async_u32x2(hopper::mapa(hl_s + ho, cc), lo[0], lo[1], bar_cc);
+      }
+      hv.x = hv.x * dec[cc] + sv[cc].x;
+      hv.y = hv.y * dec[cc] + sv[cc].y;
+      hv.z = hv.z * dec[cc] + sv[cc].z;
+      hv.w = hv.w * dec[cc] + sv[cc].w;
+    }
+    *reinterpret_cast<float4*>(h_final + ((static_cast<size_t>(b) * H + h) * P + p) * N + n) = hv;
+  };
+  const int e4_first = static_cast<int>(rank) * 128 + wt;
+  if constexpr (wg == 0) {
+    hopper::cluster_wait();
+#pragma unroll
+    for (int cc = 0; cc < kMaxCluster; ++cc)
+      dec[cc] = cc < nc ? hopper::ld_cluster_f32(hopper::mapa(hopper::smem_addr(decay_s), cc)) : 0.0f;
+    if (e4_first < P * N / 4) load_states(e4_first);
+  }
+
+  // the intra-chunk term: Y = (S ⊙ L ⊙ dt)·x, L_ij = exp(cs_i - cs_j) for
+  // j <= i, each factor one exp2: L_ij·dt_j = 2^(cs_i·log2(e) + k_j).  A
+  // warp's rows are 16w' .. 16w' + 15 of the group's: key blocks of 8 after
+  // its last row are zero, those before its first row need no mask.  S is
+  // split into bf16 hi and lo pairs, the A fragments as they stand.
+  const float csl[2] = {cs_s[row0] * kLog2e, cs_s[row0 + 8] * kLog2e};
+  const int warp_first = 64 * wg + 16 * warp;
+  uint32_t ah[KEYS / 4], al[KEYS / 4];
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j) {
+    if (8 * j > warp_first + 15) {
+      ah[2 * j] = ah[2 * j + 1] = al[2 * j] = al[2 * j + 1] = 0u;
+      continue;
+    }
+    const float2 kj = *reinterpret_cast<const float2*>(k_s + 8 * j + 2 * t4);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = s[4 * j + e] * exp2_ftz(csl[e >> 1] + ((e & 1) ? kj.y : kj.x));
+    if (8 * j + 7 >= warp_first) {  // the diagonal block: keys after the row are 0
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t4 + (e & 1) > row0 + 8 * (e >> 1)) v[e] = 0.0f;
+    }
+    split2(v[0], v[1], ah[2 * j], al[2 * j]);
+    split2(v[2], v[3], ah[2 * j + 1], al[2 * j + 1]);
+  }
+  float yacc[P / 2];
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) yacc[i] = 0.0f;
+  hopper::fence_regs(yacc);
+  hopper::fence_regs(ah);
+  hopper::fence_regs(al);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
+    const uint64_t xd = hopper::desc(hopper::desc_lo(x_s + kk * 2048, kRegion), sw_hi);
+    hopper::WgmmaRS<P>::run(yacc, ah[4 * kk], ah[4 * kk + 1], ah[4 * kk + 2], ah[4 * kk + 3], xd);
+    hopper::WgmmaRS<P>::run(yacc, al[4 * kk], al[4 * kk + 1], al[4 * kk + 2], al[4 * kk + 3], xd);
+  }
+  hopper::wgmma_commit();
+  if constexpr (wg == 0) {
+    if (e4_first < P * N / 4) finish_states(e4_first);
+    for (int e4 = e4_first + nc * 128; e4 < P * N / 4; e4 += nc * 128) {
+      load_states(e4);
+      finish_states(e4);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(yacc);
+  hopper::fence_regs(ah);
+  hopper::fence_regs(al);
+  if constexpr (wg == 1) hopper::cluster_wait();
+  hopper::cluster_arrive_relaxed();
+
+  // the carried state, once its P·N·4 bytes have landed: Z = C·h_cᵀ (both
+  // K-major), hi then lo; none in chunk 0
+  float zacc[P / 2];
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) zacc[i] = 0.0f;
+  if (c > 0) {
+    hopper::mbar_wait(h_bar, 0);
+    hopper::fence_proxy_async_cta();
+    hopper::fence_regs(zacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint64_t cd = hopper::desc(hopper::desc_lo(kmaj(c_s + 64 * wg * 128, kk, kHopQ), 16), sw_hi);
+      hopper::WgmmaSS<P>::run(zacc, cd, hopper::desc(hopper::desc_lo(kmaj(hh_s, kk, P), 16), sw_hi), kk > 0);
+      hopper::WgmmaSS<P>::run(zacc, cd, hopper::desc(hopper::desc_lo(kmaj(hl_s, kk, P), 16), sw_hi), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(zacc);
+  }
+
+  // y = Y + exp(cs_i)·Z + D·x, rounded to bf16
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int i = row0 + 8 * r2;
+    if (i >= valid) continue;
+    const float ea = expf(cs_s[i]);
+    bf16* yr = y + ((static_cast<size_t>(b) * S + c * kHopQ + i) * H + h) * P;
+#pragma unroll
+    for (int j = 0; j < P / 8; ++j) {
+      const int p = 8 * j + 2 * t4;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sm + L::kXOff + sw128(i, p, kHopQ)));
+      const float v0 = yacc[4 * j + 2 * r2] + zacc[4 * j + 2 * r2] * ea + xv.x * d_h;
+      const float v1 = yacc[4 * j + 2 * r2 + 1] + zacc[4 * j + 2 * r2 + 1] * ea + xv.y * d_h;
+      *reinterpret_cast<uint32_t*>(yr + p) = tc::pack_bf16(v0, v1);
+    }
+  }
+  hopper::cluster_wait();
+}
+
+// One block per (chunk, head, batch row); the blocks of a (batch row, head)
+// form one cluster along the chunks (nc <= 8).  256 threads: thread 0
+// issues the TMA loads of x, B and C, all threads build the weighted x,
+// then each warpgroup runs `ssd_hopper_group`.  Two blocks share an SM at
+// P = N = 64 (83 KB of shared memory, 128 registers a thread).
+template <int P, int N>
+__global__ void __launch_bounds__(kHopThreads, P == 64 && N == 64 ? 2 : 1)
+ssd_scan_hopper_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
+                       const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ dt,
+                       const float* __restrict__ A, const float* __restrict__ Dv, bf16* __restrict__ y,
+                       float* __restrict__ h_final, int S, int H, int G) {
+  using L = HopSsd<P, N>;
+  extern __shared__ __align__(16) unsigned char ssd_hop_raw[];
+  const uint32_t raw = hopper::smem_addr(ssd_hop_raw);
+  unsigned char* sm = ssd_hop_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t base = hopper::smem_addr(sm);
+  float* dt_s = reinterpret_cast<float*>(sm + L::kVecOff);
+  float* cs_s = dt_s + kHopQ;
+  float* w_s = cs_s + kHopQ;
+  float* k_s = w_s + kHopQ;
+  float* sums = k_s + kHopQ;
+  const uint32_t bar = base + L::kBarOff;
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x;
+  const int g = h / (H / G);
+  const int s0 = c * kHopQ;
+  const int valid = min(kHopQ, S - s0);
+  // the global loads first, their latency under the barriers' set-up
+  const float dt_t = tid < valid ? dt[(static_cast<size_t>(b) * S + s0 + tid) * H + h] : 0.0f;
+  const float a_h = A[h], d_h = Dv[h];
+
+  if (tid == 0) {
+    hopper::prefetch_tensormap(&tm_x);
+    hopper::prefetch_tensormap(&tm_b);
+    hopper::prefetch_tensormap(&tm_c);
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_init(bar + 8, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  // h, from the cluster's blocks: P·N bf16 high and low parts
+  if (tid == 0 && c > 0) hopper::mbar_expect_tx(bar + 8, P * N * 4);
+  if (tid == 0) {
+    // rows past S come back as zeros: x = B = C = 0 there
+    hopper::mbar_expect_tx(bar, L::kTxBytes);
+#pragma unroll
+    for (int r = 0; r < P / 64; ++r)
+      hopper::tma_load_4d(base + L::kXOff + r * kRegion, &tm_x, bar, 64 * r, h, s0, b);
+#pragma unroll
+    for (int r = 0; r < N / 64; ++r) {
+      hopper::tma_load_4d(base + L::kBOff + r * kRegion, &tm_b, bar, 64 * r, g, s0, b);
+      hopper::tma_load_4d(base + L::kCOff + r * kRegion, &tm_c, bar, 64 * r, g, s0, b);
+    }
+  }
+  if (tid < kHopQ) dt_s[tid] = dt_t;
+  chunk_cumsum(dt_s, cs_s, sums, a_h, kHopQ, tid);
+  if (tid < kHopQ) {
+    w_s[tid] = expf(cs_s[kHopQ - 1] - cs_s[tid]) * dt_s[tid];
+  } else {
+    const int j = tid - kHopQ;  // log2(0) = -inf: a padded key's factor is 0
+    k_s[j] = __log2f(dt_s[j]) - cs_s[j] * kLog2e;
+  }
+  __syncthreads();
+  hopper::mbar_wait(bar, 0);
+
+  // the weighted x w_j·x_j, split into bf16 hi + lo, in x's layout
+#pragma unroll
+  for (int k = tid; k < kHopQ * P / 8; k += kHopThreads) {
+    const uint32_t off = k * 16;
+    const float wj = w_s[(off % kRegion) >> 7];
+    const uint4 v = *reinterpret_cast<const uint4*>(sm + L::kXOff + off);
+    const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&in[q]));
+      split2(wj * xf.x, wj * xf.y, hi[q], lo[q]);
+    }
+    *reinterpret_cast<uint4*>(sm + L::kWXOff + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(sm + L::kWXOff + L::kX + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  hopper::fence_proxy_async_cta();
+  __syncthreads();
+
+  // warp-uniform, so that each group's branch is taken by whole warps
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 0) {
+    ssd_hopper_group<P, N, 64>(sm, base, tid, c, nc, b, h, S, H, valid, d_h, y, h_final);
+  } else {
+    ssd_hopper_group<P, N, 128>(sm, base, tid, c, nc, b, h, S, H, valid, d_h, y, h_final);
+  }
+}
+
+// The launch of the Hopper kernel at widths (P, N): a grid of (nc, H, Bt)
+// blocks in clusters of nc along the chunks.
+struct HopperLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  HopperLaunch(size_t smem, int nc, int H, int Bt, cudaStream_t stream) {
+    cfg.gridDim = dim3(nc, H, Bt);
+    cfg.blockDim = dim3(kHopThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Clusters of nc blocks of the Hopper kernel the card holds at once, after
+// setting its shared-memory attribute, or minus a CUDA error code.
+template <int P, int N>
+int hopper_clusters(int nc) {
+  using L = HopSsd<P, N>;
+  auto kernel = ssd_scan_hopper_kernel<P, N>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::kSmem));
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  HopperLaunch launch(L::kSmem, nc, 1, 1, nullptr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
+  return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
+constexpr int kMaxDevices = 64;
+
+template <int P, int N>
+int launch_hopper(const bf16* x, const float* dt, const float* A, const bf16* B, const bf16* C,
+                  const float* D, bf16* y, float* h_final, int Bt, int S, int H, int G,
+                  cudaStream_t stream) {
+  using L = HopSsd<P, N>;
+  const int nc = (S + kHopQ - 1) / kHopQ;
+  if (nc > kMaxCluster || !aligned16(x) || !aligned16(B) || !aligned16(C))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_x, tm_b, tm_c;
+  int err = hopper::encode_map(&tm_x, x, Bt, S, H, P, 64, kHopQ, 128);
+  if (err == 0) err = hopper::encode_map(&tm_b, B, Bt, S, G, N, 64, kHopQ, 128);
+  if (err == 0) err = hopper::encode_map(&tm_c, C, Bt, S, G, N, 64, kHopQ, 128);
+  if (err != 0) return err;
+  // the cluster check, once a (device, cluster size): at least one cluster
+  // of nc blocks fits on the card
+  static bool checked[kMaxDevices][kMaxCluster + 1] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device >= kMaxDevices || !checked[device][nc]) {
+    const int clusters = hopper_clusters<P, N>(nc);
+    if (clusters < 0) return -clusters;
+    if (clusters < 1) return kErrCluster;
+    if (device < kMaxDevices) checked[device][nc] = true;
+  }
+  HopperLaunch launch(L::kSmem, nc, H, Bt, stream);
+  e = cudaLaunchKernelEx(&launch.cfg, ssd_scan_hopper_kernel<P, N>, tm_x, tm_b, tm_c, dt, A, D, y,
+                         h_final, S, H, G);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool hopper_widths(int P, int N) { return (P == 64 || P == 128) && (N == 64 || N == 128); }
+
+size_t hopper_smem(int P, int N) {
+  return P == 64 ? (N == 64 ? HopSsd<64, 64>::kSmem : HopSsd<64, 128>::kSmem)
+                 : (N == 64 ? HopSsd<128, 64>::kSmem : HopSsd<128, 128>::kSmem);
+}
+
+int dispatch_hopper(const bf16* x, const float* dt, const float* A, const bf16* B, const bf16* C,
+                    const float* D, bf16* y, float* hf, int Bt, int S, int H, int P, int G, int N,
+                    cudaStream_t st) {
+  if (P == 64 && N == 64) return launch_hopper<64, 64>(x, dt, A, B, C, D, y, hf, Bt, S, H, G, st);
+  if (P == 64 && N == 128) return launch_hopper<64, 128>(x, dt, A, B, C, D, y, hf, Bt, S, H, G, st);
+  if (P == 128 && N == 64) return launch_hopper<128, 64>(x, dt, A, B, C, D, y, hf, Bt, S, H, G, st);
+  if (P == 128 && N == 128) return launch_hopper<128, 128>(x, dt, A, B, C, D, y, hf, Bt, S, H, G, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int PC, int NC>
 int launch_f32(const float* x, const float* dt, const float* A, const float* B, const float* C,
                const float* D, float* y, float* h_final, int Bt, int S, int H, int P, int G,
@@ -701,47 +1210,77 @@ int dispatch_f32(const float* x, const float* dt, const float* A, const float* B
   }
 }
 
+// The kernels, as the wrapper's `kernel_path` names them: 0 "cuda_core"
+// (float32), 1 "mma_sync" (bf16, two launches), 2 "wgmma_tma" (bf16, one
+// launch of clusters; chunk 128, P and N 64 or 128, at most 8 chunks,
+// 16-byte aligned x, B and C).
+enum Path { kCudaCore = 0, kMmaSync = 1, kWgmmaTma = 2 };
+
 }  // namespace
 
-// Shared-memory bytes the kernels need for one block (0 where P or N is
-// above 128), so the wrapper can refuse a shape before launching.  dtype 0
-// is float32, 1 is bfloat16.
-extern "C" long long ssd_scan_smem_bytes(int Q, int P, int N, int dtype) {
+// Shared-memory bytes one block of the kernel `path` needs (0 for a shape
+// the path does not take), so the wrapper can refuse a shape before
+// launching.
+extern "C" long long ssd_scan_smem_bytes(int Q, int P, int N, int path) {
   const int PC = groups(P);
   if (PC == 0 || groups(N) == 0) return 0;
-  if (dtype == 1) {
+  if (path == kWgmmaTma) {
+    return Q == kHopQ && hopper_widths(P, N) ? static_cast<long long>(hopper_smem(P, N)) : 0;
+  }
+  if (path == kMmaSync) {
     const CpGeometry geo = cp_geometry(Q, P, N);
     return static_cast<long long>(geo.out_bytes > geo.state_bytes ? geo.out_bytes
                                                                    : geo.state_bytes);
   }
-  return static_cast<long long>(geometry(Q, P, N, PC).bytes);
+  if (path == kCudaCore) return static_cast<long long>(geometry(Q, P, N, PC).bytes);
+  return 0;
 }
 
-// Plain C entry for ctypes.  dtype 0 is float32 (one launch; `scratch` is
-// not used), 1 is bfloat16 (x, B, C and y; two launches, `scratch` holding
-// Bt·nc·H·(P·N + 1) floats, nc = ceil(S / Q)).  Returns the CUDA error code
-// of the launches (0 on success); a shape the kernels do not take (P or N
-// above 128, Q above 128, H not a multiple of G) returns
-// cudaErrorInvalidValue.
+// Clusters of `nc` blocks of the wgmma_tma kernel at widths (P, N) that the
+// card holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA
+// error code.
+extern "C" int ssd_scan_hopper_clusters(int P, int N, int nc, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (nc < 1 || nc > kMaxCluster) return -static_cast<int>(cudaErrorInvalidValue);
+  if (P == 64 && N == 64) return hopper_clusters<64, 64>(nc);
+  if (P == 64 && N == 128) return hopper_clusters<64, 128>(nc);
+  if (P == 128 && N == 64) return hopper_clusters<128, 64>(nc);
+  if (P == 128 && N == 128) return hopper_clusters<128, 128>(nc);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry for ctypes.  `path` picks the kernel (above; x, B, C and y
+// are float32 for path 0, bfloat16 otherwise).  Path 1 takes `scratch`,
+// Bt·nc·H·(P·N + 1) floats, nc = ceil(S / Q); the others do not use it.
+// Returns the CUDA error code of the launches (0 on success), or the
+// launch's own codes (hopper.cuh's tensor-map codes, kErrCluster); a shape
+// the path does not take (P or N above 128, Q above 128, H not a multiple
+// of G; for path 2 also the limits above) returns cudaErrorInvalidValue.
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A, const void* B,
                                const void* C, const float* D, void* y, float* h_final,
                                float* scratch, int Bt, int S, int H, int P, int G, int N, int Q,
-                               int dtype, void* stream, int device) {
+                               int path, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Q < 1 || Q > 128 || G < 1 || H % G != 0 || S < 1 || groups(P) == 0 || groups(N) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (path == kCudaCore) {
     return dispatch_f32(static_cast<const float*>(x), dt, A, static_cast<const float*>(B),
                         static_cast<const float*>(C), D, static_cast<float*>(y), h_final, Bt, S,
                         H, P, G, N, Q, st);
   }
-  if (dtype == 1) {
+  if (path == kMmaSync) {
     return launch_chunked(static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B),
                           static_cast<const bf16*>(C), D, static_cast<bf16*>(y), h_final,
                           scratch, Bt, S, H, P, G, N, Q, st);
+  }
+  if (path == kWgmmaTma && Q == kHopQ) {
+    return dispatch_hopper(static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B),
+                           static_cast<const bf16*>(C), D, static_cast<bf16*>(y), h_final, Bt, S,
+                           H, P, G, N, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -113,6 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_launch.restype = i
     lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_hopper_clusters.argtypes = [i, i, i, i]
+    lib.ssd_scan_hopper_clusters.restype = i
 
 
 def load_library() -> ctypes.CDLL:

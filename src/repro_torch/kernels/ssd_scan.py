@@ -10,21 +10,34 @@ float32.
 
 The kernels (`csrc/ssd_scan.cu`) index the group of B and C for each head
 and mask the ragged last chunk, where the TPU wrapper made per-head copies
-and padded.  For bfloat16 inputs (what serving runs) the chunks run in
-parallel, in two CUDA launches per call: the chunks' own states into a
-float32 scratch tensor that this wrapper allocates, then each chunk's
-outputs after the short recurrence over the states before it; products on
-the tensor cores, each float32 operand split into two bf16 parts.  Float32
-inputs take one launch of a block per (batch row, head) that walks its
-chunks in order on the CUDA cores.  Bound on an H100 at the serve shape
-(1, 1024, 64, 64), N = 64, chunk 128, bf16: about 18 MB moved, 5.5 µs at
-3.35 TB/s (see the source and PERF.md).
+and padded.  `kernel_path` picks one of three, and
+`ssd_scan.launches_by_path` counts each:
+
+- "wgmma_tma" (bfloat16, chunk 128, P and N 64 or 128, at most 8 chunks,
+  x, B and C 16-byte aligned: every main-path call): one CUDA launch of a
+  Hopper kernel.  The blocks of a (batch row, head), one a chunk, form a
+  thread block cluster; each loads its chunk's x, B and C by TMA, computes
+  its chunk's own state and C·Bᵀ on `wgmma`, then exchanges the states
+  over distributed shared memory: the chunk states never reach device
+  memory, and no scratch tensor is allocated.
+- "mma_sync" (bfloat16 otherwise: P = 16, N = 8, chunks other than 128,
+  more than 8 chunks, unaligned views): two CUDA launches, the chunks'
+  own states into a float32 scratch tensor that this wrapper allocates,
+  then each chunk's outputs after the short recurrence over the states
+  before it, on `mma.sync`.
+- "cuda_core" (float32): one launch of a block per (batch row, head) that
+  walks its chunks in order on the CUDA cores.
+
+On both bfloat16 paths every product with a float32 operand takes it as
+two bf16 parts, hi + lo.  Bound on an H100 at the serve shape (1, 1024,
+64, 64), N = 64, chunk 128, bf16: about 18 MB moved, 5.5 µs at 3.35 TB/s
+(see the source and PERF.md).
 
 `ssd_scan` takes the plain version only for tensors on the CPU.  For a
-CUDA tensor it launches the kernels or raises.  On every device it refuses
+CUDA tensor it launches the kernel or raises.  On every device it refuses
 inputs that require grad while autograd records (the kernels have no
 backward pass), DTensors and meta tensors.  `ssd_scan.launches` counts
-the wrapper's calls that launched (each `CUDA_LAUNCHES[dtype]` kernels).
+the wrapper's calls that launched (each `CUDA_LAUNCHES[path]` kernels).
 """
 
 from __future__ import annotations
@@ -34,12 +47,34 @@ import torch.nn.functional as F
 
 #: shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
-#: largest chunk, head dim P and state dim N the kernel takes
+#: largest chunk, head dim P and state dim N the kernels take
 MAX_CHUNK = 128
 MAX_WIDTH = 128
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: CUDA kernel launches per call of the wrapper, by x's dtype
-CUDA_LAUNCHES = {torch.float32: 1, torch.bfloat16: 2}
+_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernels, by the number `csrc/ssd_scan.cu` knows them by
+PATHS = {"cuda_core": 0, "mma_sync": 1, "wgmma_tma": 2}
+#: CUDA kernel launches per call of the wrapper, by kernel path
+CUDA_LAUNCHES = {"cuda_core": 1, "mma_sync": 2, "wgmma_tma": 1}
+#: P and N, the chunk, and the most chunks (blocks of one cluster) the
+#: Hopper kernel takes
+WGMMA_WIDTHS = (64, 128)
+WGMMA_CHUNK = 128
+WGMMA_MAX_CHUNKS = 8
+
+
+def kernel_path(P: int, N: int, n_chunks: int, dtype: torch.dtype, aligned: bool, chunk: int = 128) -> str:
+    """The kernel that takes a call: "cuda_core" for float32; for bfloat16,
+    "wgmma_tma" where P and N are in `WGMMA_WIDTHS`, the chunk is
+    `WGMMA_CHUNK`, there are at most `WGMMA_MAX_CHUNKS` chunks (one cluster
+    a head) and x, B and C start on 16-byte boundaries (a TMA map cannot
+    describe another base), else "mma_sync"."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"ssd_scan: no kernel for {dtype}")
+    hopper = (P in WGMMA_WIDTHS and N in WGMMA_WIDTHS and chunk == WGMMA_CHUNK
+              and 1 <= n_chunks <= WGMMA_MAX_CHUNKS and aligned)
+    return "wgmma_tma" if hopper else "mma_sync"
 
 
 def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 128):
@@ -148,39 +183,88 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 128):
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
     Bt, S, H, P = x.shape
-    G, N = B.shape[2], B.shape[3]
+    N = B.shape[3]
     if chunk > MAX_CHUNK or P > MAX_WIDTH or N > MAX_WIDTH:
         raise ValueError(
             f"ssd_scan: the kernel takes chunk, P and N up to {MAX_CHUNK}, got {chunk}, {P}, {N}"
         )
     if H > 65535 or Bt > 65535:
         raise ValueError("ssd_scan: Bt and H must be at most 65535")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C))
+    path = kernel_path(P, N, -(-S // chunk), x.dtype, aligned, chunk)
+    out = launch(x, dt, A, B, C, D, chunk, path)
+    ssd_scan.launches += 1
+    ssd_scan.launches_by_path[path] += 1
+    return out
+
+
+def smem_bytes(chunk: int, P: int, N: int, path: str) -> int:
+    """Shared memory one block of the kernel `path` needs (0 where the
+    path does not take the shape)."""
+    from .build import load_library
+
+    return int(load_library().ssd_scan_smem_bytes(chunk, P, N, PATHS[path]))
+
+
+def launch(x, dt, A, B, C, D, chunk: int, path: str):
+    """One call of the kernel `path` on checked CUDA tensors, uncounted
+    (`ssd_scan` picks the path and counts; a measurement may time another
+    path on the same inputs).  Returns (y, h_final)."""
+    if (path == "cuda_core") != (x.dtype == torch.float32):
+        raise TypeError(f"ssd_scan: the {path} kernel does not take {x.dtype}")
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    smem = smem_bytes(chunk, P, N, path)
+    if not 0 < smem <= SMEM_LIMIT:
+        raise ValueError(
+            f"ssd_scan: the {path} kernel does not take chunk={chunk}, P={P}, N={N} "
+            f"({smem} bytes of shared memory, limit {SMEM_LIMIT})"
+        )
     from .build import load_library
 
     lib = load_library()
-    dtype = _DTYPES[x.dtype]
-    smem = lib.ssd_scan_smem_bytes(chunk, P, N, dtype)
-    if not 0 < smem <= SMEM_LIMIT:
-        raise ValueError(
-            f"ssd_scan: chunk={chunk}, P={P}, N={N} needs {smem} bytes of shared memory "
-            f"(limit {SMEM_LIMIT})"
-        )
+    dev = x.device
     y = torch.empty_like(x)
     h_final = torch.empty((Bt, H, P, N), dtype=torch.float32, device=dev)
-    # the chunk states and decays of the two-launch bf16 path
+    # the chunk states and decays of the two-launch mma_sync path
     nc = -(-S // chunk)
-    n_scratch = Bt * nc * H * (P * N + 1) if dtype else 0
+    n_scratch = Bt * nc * H * (P * N + 1) if path == "mma_sync" else 0
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-        y.data_ptr(), h_final.data_ptr(), scratch.data_ptr(), Bt, S, H, P, G, N, chunk, dtype,
-        stream, dev.index if dev.index is not None else torch.cuda.current_device(),
+        y.data_ptr(), h_final.data_ptr(), scratch.data_ptr(), Bt, S, H, P, G, N, chunk, PATHS[path],
+        torch.cuda.current_stream(dev).cuda_stream,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
     )
     if err != 0:
-        raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
-    ssd_scan.launches += 1
+        raise RuntimeError(f"ssd_scan: {path} kernel launch failed with {_launch_error(err)}")
     return y, h_final
 
 
+def hopper_clusters(P: int, N: int, n_chunks: int, device=None) -> int:
+    """Clusters of `n_chunks` blocks of the wgmma_tma kernel the card holds
+    at once (`cudaOccupancyMaxActiveClusters`)."""
+    from .build import load_library
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    n = load_library().ssd_scan_hopper_clusters(
+        P, N, n_chunks, dev.index if dev.index is not None else torch.cuda.current_device())
+    if n < 0:
+        raise RuntimeError(f"ssd_scan: cluster occupancy query failed with CUDA error {-n}")
+    return n
+
+
+def _launch_error(err: int) -> str:
+    """The launch's return code in words (`csrc/ssd_scan.cu`: CUDA runtime
+    codes, then its own from 10000)."""
+    if err == 10000:
+        return "no cuTensorMapEncodeTiled entry point in libcuda"
+    if 20000 <= err < 30000:
+        return f"a tensor map libcuda refused (CUresult {err - 20000})"
+    if err == 30000:
+        return "a cluster of that many blocks that the card cannot schedule"
+    return f"CUDA error {err}"
+
+
 ssd_scan.launches = 0
+ssd_scan.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -26,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain, kernel_path
 from repro_torch.kernels.kw_queue import kw_queue_plain
 from repro_torch.kernels.residual_sampler import residual_sample_plain
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 pytestmark = pytest.mark.cuda
@@ -392,18 +393,26 @@ def test_float32_inputs_keep_the_exact_paths_on_card():
     _ssd_check(args, 128, 1e-3, 1e-3)
 
 
-def _ssd_check(args, chunk, atol, rtol):
-    x = args[0]
+def _ssd_check(args, chunk, atol, rtol, path=None):
+    """One call against the plain version, counted once in all (whatever
+    the CUDA launches) and once on its path (`kernel_path`'s, or `path`
+    where given)."""
+    x, B, C = args[0], args[3], args[4]
     Bt, S, H, P = x.shape
-    N = args[3].shape[3]
+    N = B.shape[3]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C))
+    path = path or ssd.kernel_path(P, N, -(-S // chunk), x.dtype, aligned, chunk)
     before = ops.ssd_scan.launches
+    by_path = dict(ops.ssd_scan.launches_by_path)
     y, h = ops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.ssd_scan.launches == before + 1  # one per call, whatever the CUDA launches
+    assert ops.ssd_scan.launches == before + 1
+    assert ops.ssd_scan.launches_by_path == {**by_path, path: by_path[path] + 1}
     assert y.dtype == x.dtype and h.dtype == torch.float32 and h.shape == (Bt, H, P, N)
     y_p, h_p = ssd_scan_plain(*args, chunk=chunk)
     torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
     torch.testing.assert_close(h, h_p, rtol=rtol, atol=atol)
+    return y, h
 
 
 # (Bt, S, H, P, G, N, chunk): the bf16 chunk-parallel kernels with G > 1
@@ -425,6 +434,71 @@ SSD_BF16_CASES = [
 def test_ssd_scan_bf16_chunk_parallel_cases_on_card(Bt, S, H, P, G, N, chunk):
     dev = _card()
     _ssd_check(_ssd_inputs(Bt, S, H, P, G, N, torch.bfloat16, dev, seed=S + P), chunk, 2e-1, 5e-2)
+
+
+# (Bt, S, H, P, G, N): the Hopper kernel (chunk 128) at zamba2-1.2b's serve
+# shape, mamba2-2.7b's geometry, a ragged last chunk, one chunk (whole and
+# ragged), G = 2, Bt = 2, P = 128 with N = 64 and 128, and every cluster
+# size from 1 to 8 chunks
+SSD_WGMMA_CASES = [
+    (1, 1024, 64, 64, 1, 64),
+    (1, 1024, 80, 64, 1, 128),
+    (1, 1000, 4, 64, 1, 64),
+    (1, 128, 8, 64, 1, 64),
+    (1, 100, 4, 64, 1, 128),
+    (1, 512, 4, 64, 2, 64),
+    (2, 512, 4, 64, 1, 64),
+    (2, 700, 6, 64, 3, 128),
+    (1, 384, 2, 128, 1, 64),
+    (1, 300, 2, 128, 1, 128),
+    (1, 256, 3, 64, 1, 64),
+    (1, 640, 3, 64, 1, 64),
+    (1, 768, 2, 64, 2, 128),
+    (1, 896, 5, 64, 1, 64),
+]
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N", SSD_WGMMA_CASES)
+def test_ssd_scan_wgmma_tma_cases_on_card(Bt, S, H, P, G, N):
+    """The Hopper kernel against the plain version, and the mma_sync kernel
+    on the same inputs through `launch`."""
+    dev = _card()
+    args = _ssd_inputs(Bt, S, H, P, G, N, torch.bfloat16, dev, seed=S + P + N)
+    assert ssd.kernel_path(P, N, -(-S // 128), torch.bfloat16, True) == "wgmma_tma"
+    y, h = _ssd_check(args, 128, 2e-1, 5e-2, path="wgmma_tma")
+    y_m, h_m = ssd.launch(*args, 128, "mma_sync")
+    torch.cuda.synchronize()
+    y_p, h_p = ssd_scan_plain(*args, chunk=128)
+    torch.testing.assert_close(y_m.float(), y_p.float(), rtol=5e-2, atol=2e-1)
+    torch.testing.assert_close(h_m, h_p, rtol=5e-2, atol=2e-1)
+    # the two bf16 kernels round alike (hi + lo splits, float32 sums)
+    torch.testing.assert_close(h, h_m, rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_scan_more_chunks_than_a_cluster_holds_on_card():
+    """Ten chunks of 128: no cluster of 10 blocks, so the mma_sync kernel."""
+    dev = _card()
+    args = _ssd_inputs(1, 1280, 4, 64, 1, 64, torch.bfloat16, dev, seed=11)
+    assert ssd.kernel_path(64, 64, 10, torch.bfloat16, True) == "mma_sync"
+    _ssd_check(args, 128, 2e-1, 5e-2, path="mma_sync")
+
+
+def test_ssd_scan_hopper_kernel_holds_clusters_of_eight_on_card():
+    dev = _card()
+    for P, N in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        assert ssd.hopper_clusters(P, N, 8, dev) >= 1
+
+
+def test_ssd_scan_bf16_unaligned_serve_shape_takes_mma_sync_on_card():
+    """A view 2 bytes past a 16-byte boundary at a shape the Hopper kernel
+    takes otherwise: no TMA map describes it, so the mma_sync kernel."""
+    dev = _card()
+    x, dt, A, B, C, D = _ssd_inputs(1, 512, 4, 64, 1, 64, torch.bfloat16, dev, seed=7)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    flat[1:] = x.reshape(-1)
+    x = flat[1:].view(x.shape)
+    assert x.data_ptr() % 16 != 0
+    _ssd_check((x, dt, A, B, C, D), 128, 2e-1, 5e-2, path="mma_sync")
 
 
 def test_ssd_scan_bf16_reads_unaligned_inputs_on_card():

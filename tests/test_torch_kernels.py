@@ -27,6 +27,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import PATHS, flash_attention_plain, kernel_path
 from repro_torch.kernels.kw_queue import kw_queue_plain
 from repro_torch.kernels.residual_sampler import residual_sample_plain
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 KW_CASES = [(4, 37, 1), (8, 64, 3), (13, 48, 4), (1, 200, 2)]
@@ -455,6 +456,56 @@ def test_flash_attention_dispatch_refuses_other_dtypes_and_counts_nothing_on_cpu
     before = dict(ops.flash_attention.launches_by_path)
     ops.flash_attention(q, q, q)
     assert ops.flash_attention.launches_by_path == before
+
+
+# (P, N, chunks, dtype, 16-byte aligned, chunk, kernel): the Hopper kernel
+# takes bf16 at P and N of 64 or 128, chunk 128, 1 to 8 chunks (one
+# cluster), aligned inputs; the mma_sync kernel every other bf16 call
+# (P = 16, N = 8 or 16, 9+ chunks, chunk 64, unaligned views); float32
+# takes the CUDA-core kernel whatever the shape
+SSD_PATHS = [
+    (64, 64, 8, torch.bfloat16, True, 128, "wgmma_tma"),
+    (64, 128, 8, torch.bfloat16, True, 128, "wgmma_tma"),
+    (128, 64, 8, torch.bfloat16, True, 128, "wgmma_tma"),
+    (128, 128, 8, torch.bfloat16, True, 128, "wgmma_tma"),
+    (64, 64, 1, torch.bfloat16, True, 128, "wgmma_tma"),
+    (128, 128, 3, torch.bfloat16, True, 128, "wgmma_tma"),
+    (16, 64, 8, torch.bfloat16, True, 128, "mma_sync"),
+    (64, 16, 8, torch.bfloat16, True, 128, "mma_sync"),
+    (16, 16, 8, torch.bfloat16, True, 128, "mma_sync"),
+    (128, 16, 1, torch.bfloat16, True, 128, "mma_sync"),
+    (16, 8, 4, torch.bfloat16, True, 32, "mma_sync"),
+    (64, 64, 9, torch.bfloat16, True, 128, "mma_sync"),
+    (128, 128, 9, torch.bfloat16, True, 128, "mma_sync"),
+    (64, 128, 16, torch.bfloat16, True, 128, "mma_sync"),
+    (64, 64, 8, torch.bfloat16, False, 128, "mma_sync"),
+    (128, 64, 1, torch.bfloat16, False, 128, "mma_sync"),
+    (16, 64, 9, torch.bfloat16, False, 128, "mma_sync"),
+    (64, 64, 8, torch.bfloat16, True, 64, "mma_sync"),
+    (64, 64, 16, torch.bfloat16, True, 64, "mma_sync"),
+    (64, 64, 8, torch.float32, True, 128, "cuda_core"),
+    (128, 128, 1, torch.float32, True, 128, "cuda_core"),
+    (16, 16, 9, torch.float32, False, 128, "cuda_core"),
+    (64, 64, 9, torch.float32, True, 64, "cuda_core"),
+]
+
+
+@pytest.mark.parametrize("P,N,chunks,dtype,aligned,chunk,path", SSD_PATHS)
+def test_ssd_scan_dispatch_rule(P, N, chunks, dtype, aligned, chunk, path):
+    assert ssd.kernel_path(P, N, chunks, dtype, aligned, chunk) == path
+    assert set(ops.ssd_scan.launches_by_path) == set(ssd.PATHS) == set(ssd.CUDA_LAUNCHES)
+
+
+def test_ssd_scan_dispatch_refuses_other_dtypes_and_counts_nothing_on_cpu():
+    with pytest.raises(TypeError, match="no kernel"):
+        ssd.kernel_path(64, 64, 8, torch.float16, True)
+    x, dt, A, B, C, D = (torch.from_numpy(a) for a in _ssd_inputs(1, 256, 2, 64, 1, 64))
+    before, by_path = ops.ssd_scan.launches, dict(ops.ssd_scan.launches_by_path)
+    for dtype in (torch.bfloat16, torch.float32):
+        y, h = ops.ssd_scan(x.to(dtype), dt, A, B.to(dtype), C.to(dtype), D)
+        assert y.dtype == dtype and h.shape == (1, 2, 64, 64)
+    assert ops.ssd_scan.launches == before
+    assert ops.ssd_scan.launches_by_path == by_path
 
 
 # tests/test_kernels.py's SSD_CASES: (Bt, S, H, P, G, N, chunk, dtype)
