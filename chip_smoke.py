@@ -420,15 +420,60 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: every kw_queue kernel launch of the run, as (phase, B, J, c, path), and
+#: a copy of the first inputs of each (B, J, c); `uncounted()` drops the
+#: records of its block, `record_kw_launches` makes them
+KW_LAUNCHES: list = []
+KW_INPUTS: dict = {}
+KW_PHASE = ["kernels"]
+
+
+def record_kw_launches():
+    """Wraps the kw_queue wrapper's `launch` (every kernel launch goes
+    through it) so that each launch appends its shape and path, in phase
+    KW_PHASE[0], to KW_LAUNCHES.  Returns the function that unwraps it."""
+    from repro_torch.kernels import kw_queue as kwk
+
+    inner = kwk.launch
+
+    def recorded(arrivals, services, speeds, path, *args, **kwargs):
+        B, J = arrivals.shape
+        c = int(speeds.shape[0])
+        KW_LAUNCHES.append((KW_PHASE[0], B, J, c, path))
+        if (B, J, c) not in KW_INPUTS:
+            KW_INPUTS[(B, J, c)] = (arrivals.clone(), services.clone(), speeds.clone())
+        return inner(arrivals, services, speeds, path, *args, **kwargs)
+
+    kwk.launch = recorded
+
+    def unwrap():
+        kwk.launch = inner
+
+    return unwrap
+
+
+def kw_queue_shapes(records) -> list:
+    """The distinct (phase, B, J, c) of kw_queue launch records, with their
+    launches by path, in order of first launch."""
+    classes: dict = {}
+    for phase, B, J, c, path in records:
+        entry = classes.setdefault((phase, B, J, c), dict(phase=phase, B=B, J=J, c=c, launches=0, by_path={}))
+        entry["launches"] += 1
+        entry["by_path"][path] = entry["by_path"].get(path, 0) + 1
+    return list(classes.values())
+
+
 @contextlib.contextmanager
 def uncounted():
-    """Launches of the block leave the kernels' launch counters as they
-    were: for calls made only to compare a path with its reference."""
+    """Launches of the block leave the kernels' launch counters (in all
+    and by kernel path) and the kw_queue launch records as they were: for
+    calls made only to compare a path with its reference."""
     from repro_torch.kernels import ops
 
     kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)
     saved = [k.launches for k in kernels]
-    by_path = {k: dict(k.launches_by_path) for k in (ops.flash_attention, ops.ssd_scan)}
+    by_path = {k: dict(k.launches_by_path) for k in (ops.kw_queue, ops.flash_attention, ops.ssd_scan)}
+    n_kw = len(KW_LAUNCHES)
     try:
         yield
     finally:
@@ -436,6 +481,58 @@ def uncounted():
             k.launches = n
         for k, paths in by_path.items():
             k.launches_by_path = paths
+        del KW_LAUNCHES[n_kw:]
+
+
+def reset_kw() -> None:
+    """kw_queue's launch counters, in all and by kernel path, to 0."""
+    from repro_torch.kernels import ops
+
+    ops.kw_queue.launches = 0
+    ops.kw_queue.launches_by_path = dict.fromkeys(ops.kw_queue.launches_by_path, 0)
+
+
+def time_turns(torch, fns: dict, reps: int, device, flush=None) -> dict:
+    """Each of `fns` timed by `time_ms` in turns (a, b, b, a): the mean of
+    its two medians of `reps` calls, in ms."""
+    order = [*fns, *reversed(list(fns))]
+    samples: dict = {name: [] for name in fns}
+    for name in order:
+        samples[name].append(time_ms(torch, fns[name], reps, device, flush, ahead=True))
+    return {name: float(np.mean(v)) for name, v in samples.items()}
+
+
+def kw_paths_case(torch, device, args, reps, flush) -> dict:
+    """kw_queue on `args` through its wrapper and through each kernel path,
+    every output bit-equal to kw_queue_plain's (torch.equal on all four),
+    then each path timed in turns on the same inputs (on the card); the
+    byte bound, and path "tma"'s cut (`tma_plan`)."""
+    from repro_torch.kernels import kw_queue as kwk
+
+    arrivals, services, speeds = args
+    B, J = arrivals.shape
+    c = int(speeds.shape[0])
+    what = f"kw_queue {(B, J, c)}"
+    with uncounted():
+        want = kwk.kw_queue_plain(*args)
+        got = kwk.kw_queue(*args)
+        for name, a, b in zip(("starts", "finishes", "services", "slots"), got, want):
+            check(torch.equal(a, b), f"{what}: {name} bit-equal to kw_queue_plain")
+        case = dict(B=B, J=J, c=c, max_abs_err=max(float((a.double() - b.double()).abs().max())
+                                                    for a, b in zip(got, want)))
+        if device.type == "cuda":
+            path = kwk.kernel_path(B, J, c, all(t.data_ptr() % 16 == 0 for t in args[:2]))
+            plan = kwk.tma_plan(B, J, c, kwk.n_sms(device))
+            paths = [p for p in kwk.PATHS if p != "tma" or plan is not None]
+            for p in paths:
+                for name, a, b in zip(("starts", "finishes", "services", "slots"), kwk.launch(*args, p), want):
+                    check(torch.equal(a, b), f"{what}: {p} path's {name} bit-equal to kw_queue_plain")
+            ms = time_turns(torch, {p: (lambda p=p: kwk.launch(*args, p)) for p in paths}, reps, device, flush)
+            case.update(path=path, ms=ms.get(path), two_launch_ms=ms["two_launch"], tma_ms=ms.get("tma"),
+                        plan=None if plan is None else dict(L=plan.L, K=plan.K, R=plan.R, blocks=plan.blocks,
+                                                           threads=plan.threads, smem=plan.smem))
+    case["bound_ms"], case["bound_by"] = bound(B * J * 24 + c * 4, B * J * (3 + 2 * c))
+    return case
 
 
 def reset_flash() -> None:
@@ -493,22 +590,12 @@ def phase_kernels(torch, device, sizes) -> dict:
     kw_cases = []
     for i, load in enumerate(sizes["kw_loads"]):
         for speeds in ([2.0, 1.0, 1.0, 0.5], [1.0]):
-            arrivals, services, sp = kw_inputs(torch, device, g if i == 0 else g_loads, B, J, speeds, load)
-            c = len(speeds)
-            what = f"kw_queue (load {load}, c={c})"
-            got = kw_queue(arrivals, services, sp)
-            want = kw_queue_plain(arrivals, services, sp)
-            check(torch.equal(got[3], want[3]), f"{what} slots equal")
-            err = 0.0
-            for a, b in zip(got[:3], want[:3]):
-                check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)), f"{what} floats")
-                err = max(err, float((a - b).abs().max()))
-            kw_cases.append(dict(
-                B=B, J=J, c=c, load=load, max_abs_err=err,
-                ms=time_ms(torch, lambda: kw_queue(arrivals, services, sp), sizes["kernel_reps"], device, flush, ahead=True),
-                plain_ms=time_ms(torch, lambda: kw_queue_plain(arrivals, services, sp), sizes["plain_reps"], device),
-                bound=bound(B * J * 24 + c * 4, B * J * (3 + 2 * c)),
-            ))
+            args = kw_inputs(torch, device, g if i == 0 else g_loads, B, J, speeds, load)
+            case = kw_paths_case(torch, device, args, sizes["kernel_reps"], flush)
+            case.update(load=load, plain_ms=time_ms(torch, lambda: kw_queue_plain(*args), sizes["plain_reps"], device))
+            if device.type != "cuda":
+                case["ms"] = time_ms(torch, lambda: kw_queue(*args), sizes["kernel_reps"], device)
+            kw_cases.append(case)
 
     M, s, k = sizes["residual_shape"]
     xs = torch.sort(torch.as_tensor(job1_trace(), dtype=torch.float32, device=device)).values
@@ -527,12 +614,12 @@ def phase_kernels(torch, device, sizes) -> dict:
     )
     flash = flash_kernel_cases(torch, device, sizes, g, flush)
     ssd = ssd_kernel_cases(torch, device, sizes, g, flush)
-    for case in (*kw_cases, res_case, *flash, *ssd):
+    for case in (res_case, *flash, *ssd):
         if "bound" in case:
             case["bound_ms"], case["bound_by"] = case.pop("bound")
     emit("kernels", kw_queue=kw_cases, residual_sample=res_case, flash_attention=flash,
          ssd_scan=ssd,
-         tolerance=dict(kw_queue="slots exact, floats rtol=atol=1e-5",
+         tolerance=dict(kw_queue="bit-equal (torch.equal on all four outputs), every kernel path",
                         residual_sample="max exact, sum rtol 1e-5",
                         flash_attention="rtol=atol 2e-5 float32, 2e-2 bfloat16",
                         ssd_scan="rtol=atol 1e-3 float32; atol 2e-1, rtol 5e-2 bfloat16"))
@@ -1908,7 +1995,8 @@ def phase_dag_profile(torch, device, sizes) -> None:
     """One full-width `dag_frontier` call under torch.profiler (after a warm
     call): device time by kernel, launches, the idle share, and the
     kw_queue kernels' device time in each stage's call, in stage order
-    (each call's launches begin with its `kw_segment_kernel`)."""
+    (each call's launches begin with its `kw_tma_kernel`, or on path
+    "two_launch" its `kw_segment_kernel`)."""
     from repro_torch.dag import dag_frontier
 
     inp = dag_inputs(sizes)
@@ -1922,9 +2010,9 @@ def phase_dag_profile(torch, device, sizes) -> None:
     out = profiled(torch, call, named=("kw_",))
     per_stage: list = []
     for k in out["sequence"]:
-        if "kw_segment" in k["name"]:
+        if "kw_segment" in k["name"] or "kw_tma" in k["name"]:
             per_stage.append(0.0)
-        check(bool(per_stage), f"{k['name']} launched after a kw_segment_kernel")
+        check(bool(per_stage), f"{k['name']} launched after a kw_tma_kernel or kw_segment_kernel")
         per_stage[-1] += k["device_ms"]
     check(len(per_stage) == len(inp["dag"].stages), f"one kw_queue call per stage in the profile ({len(per_stage)})")
     emit("dag_profile", **out, kw_queue_ms_per_stage=per_stage)
@@ -2514,6 +2602,28 @@ def phase_fleet_adaptive(torch, device, sizes) -> dict:
     return searches[0], held
 
 
+def phase_kw_queue_classes(torch, device, sizes, shapes) -> list:
+    """kw_queue at each main-path shape class (B, J, c) of `shapes`, on the
+    first inputs a main path gave it, and at the fleet gates' row 1 (96,
+    384, c = 3, a comparison there): every kernel path bit-equal to
+    kw_queue_plain, then path "tma" and path "two_launch" timed in turns
+    on the same inputs (`kw_paths_case`), beside the byte bound."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=device) if device.type == "cuda" else None
+    classes: dict = {}
+    for e in shapes:
+        entry = classes.setdefault((e["B"], e["J"], e["c"]), dict(phases={}, launches=0))
+        entry["phases"][e["phase"]] = entry["phases"].get(e["phase"], 0) + e["launches"]
+        entry["launches"] += e["launches"]
+    classes.setdefault((96, 384, 3), dict(phases={"fleet_gates row 1 (a comparison)": 0}, launches=0))
+    rows = []
+    for (B, J, c), entry in classes.items():
+        args = KW_INPUTS.get((B, J, c)) or kw_gate_inputs(torch, device)
+        check(tuple(args[0].shape) + (int(args[2].shape[0]),) == (B, J, c), f"kw_queue inputs of {(B, J, c)}")
+        rows.append(entry | kw_paths_case(torch, device, args, sizes["kernel_reps"], flush))
+    emit("kw_queue_classes", classes=rows, tolerance="bit-equal (torch.equal on all four outputs)")
+    return rows
+
+
 def phase_fleet_adaptive_profile(torch, device, search) -> None:
     """`obs.kernel_profile` over one re-plan's `policy_search` call (the
     first of phase `fleet_adaptive`): compile_s, wall_s, device ms by
@@ -3071,7 +3181,6 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     import torch
 
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.kw_queue import kw_queue
     from repro_torch.kernels.residual_sampler import residual_sample
 
     device = torch.device(device_name)
@@ -3080,56 +3189,86 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
         lib = build.load_library()
         emit("build", seconds=time.perf_counter() - t0, library=Path(lib._name).name,
              sources=[str(p.relative_to(ROOT)) for p in build.sources()], flags=list(build.NVCC_FLAGS))
+    unwrap_kw = record_kw_launches()
     measured = phase_kernels(torch, device, sizes)
+    kw_paths: dict = {}
 
-    kw_queue.launches = 0
+    def kw_phase(name: str) -> None:
+        """kw_queue's counters to 0; its launches recorded under `name`."""
+        reset_kw()
+        KW_PHASE[0] = name
+
+    def kw_read(name: str) -> int:
+        kw_paths[name] = dict(ops.kw_queue.launches_by_path)
+        return ops.kw_queue.launches
+
+    kw_phase("frontier")
     residual_sample.launches = 0
     main_path(torch, device, sizes)
-    paths = {"frontier": {"kw_queue": kw_queue.launches, "residual_sample": residual_sample.launches}}
-    kw_queue.launches = 0
+    paths = {"frontier": {"kw_queue": kw_read("frontier"), "residual_sample": residual_sample.launches}}
+    kw_phase("dag")
     dag_event = phase_dag(torch, device, sizes)
-    paths["dag"] = {"kw_queue": kw_queue.launches}
+    paths["dag"] = {"kw_queue": kw_read("dag")}
     gates = dict(dag_event["gates"])
-    kw_queue.launches = 0
+    kw_phase("fleet_gates")
     gates.update(phase_fleet_gates(torch, device, sizes))
-    paths["fleet_gates"] = {"kw_queue": kw_queue.launches}
-    kw_queue.launches = 0
+    paths["fleet_gates"] = {"kw_queue": kw_read("fleet_gates")}
+    kw_phase("dag_gates")
     gates.update(phase_dag_gates(torch, device, sizes, dag_event["race"]))
-    paths["dag_gates"] = {"kw_queue": kw_queue.launches}
+    paths["dag_gates"] = {"kw_queue": kw_read("dag_gates")}
     del dag_event
-    kw_queue.launches = 0
+    kw_phase("paper")
     phase_paper(torch, device, sizes)
-    paths["paper"] = {"kw_queue": kw_queue.launches}
+    paths["paper"] = {"kw_queue": kw_read("paper")}
     flash_paths = {}
     reset_flash()
+    KW_PHASE[0] = "serve_moe"
     phase_serve_moe(torch, device, sizes)
     paths["serve_moe"] = {"flash_attention": ops.flash_attention.launches}
     flash_paths["serve_moe"] = dict(ops.flash_attention.launches_by_path)
     reset_flash()
+    KW_PHASE[0] = "configs"
     phase_configs(torch, device, sizes)
     paths["configs"] = {"flash_attention": ops.flash_attention.launches}
     flash_paths["configs"] = dict(ops.flash_attention.launches_by_path)
     ssd_paths = {}
+    KW_PHASE[0] = "serve"
     paths["serve"], flash_paths["serve"], ssd_paths["serve"], served = phase_serve(torch, device, sizes)
-    kw_queue.launches = 0
+    kw_phase("fleet_adaptive")
     first_replan, adaptive_gates = phase_fleet_adaptive(torch, device, sizes)
-    paths["fleet_adaptive"] = {"kw_queue": kw_queue.launches}
+    paths["fleet_adaptive"] = {"kw_queue": kw_read("fleet_adaptive")}
     gates.update(adaptive_gates)
     emit("fleet_gates", gates=gate_map(gates))
-    ops.kw_queue.launches = 0
+    kw_phase("fleet_serve")
     reset_flash()
     reset_ssd()
     phase_fleet_serve(torch, device, sizes, served)
     paths["fleet_serve"] = {k: getattr(ops, k).launches for k in ("kw_queue", "flash_attention", "ssd_scan")}
+    kw_read("fleet_serve")
     flash_paths["fleet_serve"] = dict(ops.flash_attention.launches_by_path)
     ssd_paths["fleet_serve"] = dict(ops.ssd_scan.launches_by_path)
+    # every main-path kw_queue launch, by phase and shape: the records agree
+    # with the counters, and on the card every launch took path "tma"
+    shapes = kw_queue_shapes(KW_LAUNCHES)
+    emit("kw_queue_shapes", classes=shapes)
+    for phase, counts in paths.items():
+        recorded = sum(e["launches"] for e in shapes if e["phase"] == phase)
+        check(recorded == counts.get("kw_queue", 0), f"{phase}: {recorded} kw_queue launches recorded, "
+                                                    f"{counts.get('kw_queue', 0)} counted")
+    if device.type == "cuda":
+        off = [e for e in shapes if set(e["by_path"]) != {"tma"}]
+        check(not off, f"every main-path kw_queue launch took path tma: {off}")
+    KW_PHASE[0] = "kw_queue_classes"
+    phase_kw_queue_classes(torch, device, sizes, shapes)
+    unwrap_kw()
     trained = phase_train(torch, device, sizes)
     before = [k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)]
     sharded = phase_sharded_train(torch, device, sizes)
     phase_dryrun(torch, sizes, sharded)
     check([k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)] == before,
           "the sharded step and the dry-run launched none of the four kernels")
-    emit("launches", **paths, flash_attention_by_path=flash_paths, ssd_scan_by_path=ssd_paths)
+    emit("launches", **paths, kw_queue_by_path=kw_paths, flash_attention_by_path=flash_paths,
+         ssd_scan_by_path=ssd_paths)
     # torch.profiler only after every timed phase, so that no timing
     # follows a profiler session
     phase_fleet_adaptive_profile(torch, device, first_replan)
@@ -3157,7 +3296,7 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:85"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:82"),
     }
-    by_path = {"flash_attention": flash_paths, "ssd_scan": ssd_paths}
+    by_path = {"kw_queue": kw_paths, "flash_attention": flash_paths, "ssd_scan": ssd_paths}
     table = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
              max_abs_err=measured[name]["max_abs_err"], ms=measured[name]["ms"],

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the bf16 attention and SSD kernels
-// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA tensor loads and the
-// tensor maps they read, warpgroup matrix multiplies (wgmma) and their
+// (flash_attention.cu, ssd_scan.cu) and of the queue kernel (kw_queue.cu):
+// mbarriers, TMA tensor loads and stores and the tensor maps they read, warpgroup matrix multiplies (wgmma) and their
 // shared-memory descriptors, register rebalancing between warpgroups,
 // named barriers, thread block clusters (ranks, distributed shared memory,
 // the cluster barrier).
@@ -96,6 +96,33 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
+
+// A box of a 2-D tensor map at (c0 innermost, c1) into shared memory at
+// `dst`, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared memory at `src` into the box of a 2-D tensor map at (c0, c1);
+// elements past the map's bounds are not written.  Completes in this
+// thread's current bulk group (bulk_commit, bulk_wait).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Waits until this thread's committed bulk groups have completed (their
+// writes done, their shared memory read).
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // ---- warpgroups ----
 
@@ -416,6 +443,24 @@ inline EncodeTiled encode_tiled() {
 // CUresult).
 constexpr int kErrNoEncoder = 10000;
 constexpr int kErrTensorMap = 20000;
+
+// A (rows, cols) tensor of 4-byte elements (`type`: float32 or int32),
+// rows `cols` elements apart, as a 2-D map in boxes of (box_cols,
+// box_rows), unswizzled; a box past the bounds reads zeros there.  cols
+// must be a multiple of 4 and `ptr` 16-byte aligned.
+inline int encode_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int rows, int cols,
+                         int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+}
 
 // A (B, S, H, D) bf16 tensor (attention's q, k, v; the SSD's x, and its B
 // and C as (Bt, S, G, N)) as the 4-D map (D, H, S, B), read by strides, in

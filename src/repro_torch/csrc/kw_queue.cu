@@ -5,7 +5,7 @@
 // idle at its arrival, else the lowest-index slot among those that free
 // earliest; start = max(a, free), svc = s / speed[slot], finish = start + svc.
 //
-// Design.  The recursion is sequential over the jobs of a queue, but its
+// Coupling.  The recursion is sequential over the jobs of a queue, but its
 // state forgets.  Call two states X, Y equivalent at a when every slot is
 // idle in both (free <= a) or holds the same bits in both.  If the
 // arrivals from a job on never decrease, two runs whose states are
@@ -13,8 +13,52 @@
 // a slot idle at a stays idle for every later job and starts it at its
 // arrival, and the "earliest-freeing" branch is taken only when every slot
 // is busy, where the two states agree bit for bit.  Without that order only
-// bitwise-equal states are known to agree.
+// bitwise-equal states are known to agree.  Both paths cut a queue's J jobs
+// into K segments of L, run each from a guessed start state, and re-run a
+// segment from its predecessor's end state until the two runs couple.
 //
+// Path "tma" (kw_tma_kernel; every call with J a multiple of 4, 16-byte
+// aligned tensors and a row group that fits in shared memory): one launch,
+// no scratch.  A block holds R whole rows (queues), one thread a segment
+// (R·K <= 256; the wrapper picks L so that B·K chains give several warps
+// on every SM and a row has at most 80 segments, and R so that a block
+// fills a warp).
+//   0. One thread issues TMA loads of the rows' arrivals and services in
+//      (R rows x TJ jobs) tiles, each completing on its own mbarrier; the
+//      rows stay in shared memory, since the fix-ups read any job of them.
+//   a. Speculate: each segment waits for its tiles and runs from all slots
+//      idle (segment 0 from zeros), staging its outputs in shared memory,
+//      its start and end states and whether its arrivals never decrease.
+//   b. Rounds: each segment whose predecessor's end state changed (in the
+//      first round, every segment after the first) re-runs from it beside
+//      the staged run, whose state it rebuilds from its own start state and
+//      the staged slots and finishes, and stops four jobs after the two
+//      couple (equivalent where the row's arrivals never decrease from this
+//      segment on, else bitwise).  If they never couple, its end state
+//      changes.  A round's segments are listed first and taken by the
+//      block's first threads, so that they fill as few warps as they can.
+//      (Letting a re-run that never couples go on into the next segment
+//      when the round does not hold that one measured slower on the card:
+//      from a start not yet exact it walks stretches later rounds redo.)
+//      Rounds go on, at most `max_rounds`, while a round settles (re-runs
+//      without a change to pass on) at least two segments a row (after
+//      round r, segments 0..r are exact).
+//   c. Walk: where rounds stopped paying (a saturated queue never empties,
+//      and each round settles one segment), one thread a row steps, in
+//      order, every segment whose predecessor changed, from the exact state,
+//      with nothing but the recursion on its chain; at the segment's end
+//      its state is tested against the recorded end state at the next
+//      arrival, which says whether the next segment must be walked too.
+//   d. The four outputs go out from shared memory by TMA stores.
+//   Each segment and each row's ordering flags live in shared memory: the
+//   end states pass between segments there, and nothing else is written.
+//   Shared memory is read 16 bytes a lane; with L/4 odd the lanes of a row
+//   hit distinct banks.
+//
+// Path "two_launch" (kw_segment_kernel, kw_fixup_kernel; unaligned rows and
+// views, and rows too long for shared memory): two launches, one
+// thread a (queue, segment) in one-warp blocks and then one a queue, with
+// the end states passed through scratch tensors the caller allocates.
 //   Kernel 1 (kw_segment_kernel), one thread per (queue, segment): the J
 //   jobs are cut into K segments of L jobs (the last may be short).
 //   a. Speculate: segment 0 runs from the true initial state (zeros), every
@@ -41,40 +85,34 @@
 //   1's fix-up agreed, where the state is compared with the speculative one
 //   recorded there, and on to the segment's end if they differ.  A segment
 //   walked to its end is compared with E[k] at the next arrival, which says
-//   whether the fix-up of k + 1 stands.  At low load nearly every segment
-//   agrees within a few jobs and kernel 2 only reads; a saturated queue
-//   never empties, nothing agrees, and kernel 2 walks every job after the
-//   second segment.
+//   whether the fix-up of k + 1 stands.
+//   Its fix-up and walk go four jobs at a time, with 16-byte loads and
+//   stores where rows and segments are aligned to four jobs.
 //
-// Kernel 1's fix-up and kernel 2's walk go four jobs at a time, with
-// 16-byte loads and stores where rows and segments are aligned to four jobs
-// (outputs past the point of agreement are rewritten with the values
-// already there).  Per step, one pass over the slots picks the slot with
-// selects only, then one division by the chosen slot's speed.  (Dividing
-// by every slot's speed ahead of the choice, which takes the division off
-// the chain, measured slower on the card, and so did branches in the slot
-// choice, and a second round of fix-ups in kernel 1 from the predecessor's
-// fixed-up end state: PERF.md.)  The agreement test is not on the chain:
-// both runs are stepped whatever it says.
+// The step.  Passes over the slots pick the slot with selects only, then
+// one division by the chosen slot's speed (path "tma" specialises c <= 4,
+// scanning for the lowest idle slot from the top down).  The agreement
+// tests are not on the chain: both runs are stepped whatever they say.
 //
 // Exactness.  Built without fast math: max, IEEE round-to-nearest division
 // and addition (written as __fdiv_rn / __fadd_rn, so no contraction) are
-// the operations of the plain PyTorch version, which it equals bit for bit,
-// for sorted and unsorted rows alike: nothing a row keeps is speculative
-// without the agreement test.  c <= 32, B·J < 2^31.
+// the operations of the plain PyTorch version, which both paths equal bit
+// for bit, for sorted and unsorted rows alike: nothing a row keeps is
+// speculative without the agreement test.  c <= 32, B·J < 2^31.
 //
 // What bounds it on an H100.  Bytes: B·J·24 (two float inputs, three float
 // outputs and one int32 output), 25 MB at B=512, J=2048, i.e. 7.5 µs at
-// 3.35 TB/s.  Kernel 1 is B·K threads, each a chain of L dependent steps
-// plus the steps to agreement (about 15-40 at load 0.7-0.85, c = 4); kernel
-// 2 is B threads, nearly idle at low load and J - 2L dependent steps when
-// saturated.  Both are bound by the latency of those chains, not by bytes;
-// PERF.md records the times.
+// 3.35 TB/s.  What sets the time of path "tma": the chains of dependent
+// steps (L speculated, then the steps to coupling in each round, and at
+// saturation J - 2L walked by one thread a row) and the issue slots of the
+// B·K chains at once; PERF.md records the times.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -502,9 +540,481 @@ int launch(const float* a, const float* s, const float* sp, int B, int J, int c,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- path "tma": one launch, a block per group of rows ----
+
+constexpr int kTmaThreads = 256;  // most threads a block: R rows x K segments
+constexpr int kTmaMaxTiles = 64;
+constexpr long long kTmaSmemLimit = 232448;  // 227 KB, a block's most on Hopper
+constexpr int kMaxDevices = 64;
+
+// A block's shared memory, in bytes from a 128-byte aligned base: the six
+// staged arrays (arrivals, services, starts, finishes, services scaled,
+// slots), each `tiles` boxes of R rows x TJ jobs as TMA writes them (tile
+// t of row r at (t·R + r)·TJ elements); each segment's start state and end
+// state (c floats); each segment's "changed" flag; each row's last
+// unsorted segment; a round's work list of segments; the list's length
+// and a count of walked segments; one mbarrier per tile.
+struct TmaLayout {
+  long long arr, init, end, chg, last, list, walked, bars, total;
+  __host__ __device__ TmaLayout(int R, int K, int c, int tj, int tiles) {
+    const long long pairs = static_cast<long long>(R) * K;
+    arr = static_cast<long long>(tiles) * R * tj * 4;
+    init = 6 * arr;
+    end = init + pairs * c * 4;
+    chg = end + pairs * c * 4;
+    last = chg + pairs * 4;
+    list = last + R * 4;
+    walked = list + pairs * 4;
+    bars = (walked + 8 + 7) / 8 * 8;
+    total = bars + tiles * 8 + 128;  // + the base's alignment
+  }
+};
+
+// One job of the recursion, as kw_step, with fewer instructions: with
+// EXACT the slot count is MAXC (c <= 4 is dispatched so), and the lowest
+// idle slot is found scanning down, the last hit winning, so that each slot
+// costs one comparison and three selects in each of the two scans.  (The c
+// quotients s / speed[i] computed ahead of the choice, which takes the
+// division off the chain, measured slower on the card in every phase.)
+template <int MAXC, bool EXACT>
+__device__ __forceinline__ void tma_step(float (&fr)[MAXC], const float (&speed)[MAXC], float a,
+                                         float s, int c, float& start, float& fin, float& svc,
+                                         int& slot) {
+  int idle = MAXC;
+  float f_idle = 0.0f, q_idle = 1.0f;
+#pragma unroll
+  for (int i = MAXC - 1; i >= 0; --i) {
+    const bool hit = (EXACT || i < c) && fr[i] <= a;
+    idle = hit ? i : idle;
+    f_idle = hit ? fr[i] : f_idle;
+    q_idle = hit ? speed[i] : q_idle;
+  }
+  int soon = 0;
+  float f_soon = fr[0], q_soon = speed[0];
+#pragma unroll
+  for (int i = 1; i < MAXC; ++i) {
+    const bool hit = (EXACT || i < c) && fr[i] < f_soon;
+    soon = hit ? i : soon;
+    f_soon = hit ? fr[i] : f_soon;
+    q_soon = hit ? speed[i] : q_soon;
+  }
+  const bool any_idle = idle < MAXC;
+  slot = any_idle ? idle : soon;
+  start = fmaxf(a, any_idle ? f_idle : f_soon);
+  svc = __fdiv_rn(s, any_idle ? q_idle : q_soon);
+  fin = __fadd_rn(start, svc);
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) fr[i] = i == slot ? fin : fr[i];
+}
+
+// Element (r, j) of a staged array: tile j / TJ, row r, job j % TJ.
+__device__ __forceinline__ int tma_at(int r, int j, int R, int lg) {
+  return (((j >> lg) * R + r) << lg) | (j & ((1 << lg) - 1));
+}
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Stores the outputs of jobs x .. x + 3 of the staged arrays (16 bytes each).
+__device__ __forceinline__ void stage4(float* ST, float* FI, float* SV, int* SL, int x,
+                                       const float (&st)[4], const float (&fi)[4],
+                                       const float (&sv)[4], const int (&sl)[4]) {
+  *reinterpret_cast<float4*>(ST + x) = make_float4(st[0], st[1], st[2], st[3]);
+  *reinterpret_cast<float4*>(FI + x) = make_float4(fi[0], fi[1], fi[2], fi[3]);
+  *reinterpret_cast<float4*>(SV + x) = make_float4(sv[0], sv[1], sv[2], sv[3]);
+  *reinterpret_cast<int4*>(SL + x) = make_int4(sl[0], sl[1], sl[2], sl[3]);
+}
+
+// Runs jobs j0 .. j1 - 1 of staged row r from `fr`, four at a time (the
+// next four loaded ahead of the chain), staging the outputs.  `prev` is the
+// arrival of the job before j0 (-inf for none); returns whether the
+// arrivals never decrease from there.
+template <int MAXC, bool EXACT>
+__device__ __forceinline__ bool tma_speculate(const float* A, const float* S, float* ST, float* FI,
+                                              float* SV, int* SL, int r, int j0, int j1, int R,
+                                              int lg, float prev, float (&fr)[MAXC],
+                                              const float (&speed)[MAXC], int c) {
+  bool sorted = true;
+  int x = tma_at(r, j0, R, lg);
+  float4 a4 = *reinterpret_cast<const float4*>(A + x);
+  float4 s4 = *reinterpret_cast<const float4*>(S + x);
+  for (int j = j0; j < j1; j += 4) {
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    const int xc = x;
+    if (j + 4 < j1) {
+      x = tma_at(r, j + 4, R, lg);
+      a4 = *reinterpret_cast<const float4*>(A + x);
+      s4 = *reinterpret_cast<const float4*>(S + x);
+    }
+    float st[4], fi[4], sv[4];
+    int sl[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      sorted &= a[u] >= prev;  // false for NaN as well
+      prev = a[u];
+      tma_step<MAXC, EXACT>(fr, speed, a[u], s[u], c, st[u], fi[u], sv[u], sl[u]);
+    }
+    stage4(ST, FI, SV, SL, xc, st, fi, sv, sl);
+  }
+  return sorted;
+}
+
+// Re-runs jobs j0 .. j1 - 1 of staged row r from `nw` beside the run whose
+// outputs are staged there, whose state is rebuilt job by job from `old`
+// (its start state) and its staged slots and finishes.  Four jobs at a
+// time, staging the new run's outputs over the old: before each four the
+// two states are tested at the first one's arrival (`equiv`: equivalent,
+// else bitwise); if they agree, the four are finished (their outputs are
+// the old ones) and it returns true.  Otherwise it returns false with `nw`
+// the new run's end state.  The test is not on the chain: the four jobs
+// are stepped whatever it says.
+template <int MAXC, bool EXACT>
+__device__ __forceinline__ bool tma_rerun(const float* A, const float* S, float* ST, float* FI,
+                                          float* SV, int* SL, int r, int j0, int j1, int R, int lg,
+                                          bool equiv, float (&nw)[MAXC], float (&old)[MAXC],
+                                          const float (&speed)[MAXC], int c) {
+  int x = tma_at(r, j0, R, lg);
+  float4 a4 = *reinterpret_cast<const float4*>(A + x);
+  float4 s4 = *reinterpret_cast<const float4*>(S + x);
+  float4 f4 = *reinterpret_cast<const float4*>(FI + x);
+  int4 l4 = *reinterpret_cast<const int4*>(SL + x);
+  for (int j = j0; j < j1; j += 4) {
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float of[4] = {f4.x, f4.y, f4.z, f4.w};
+    const int ol[4] = {l4.x, l4.y, l4.z, l4.w};
+    const int xc = x;
+    if (j + 4 < j1) {  // the next four, ahead of the chain (and of this four's stores)
+      x = tma_at(r, j + 4, R, lg);
+      a4 = *reinterpret_cast<const float4*>(A + x);
+      s4 = *reinterpret_cast<const float4*>(S + x);
+      f4 = *reinterpret_cast<const float4*>(FI + x);
+      l4 = *reinterpret_cast<const int4*>(SL + x);
+    }
+    const bool hit = coupled(nw, old, a[0], c, equiv);
+    float st[4], fi[4], sv[4];
+    int sl[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) tma_step<MAXC, EXACT>(nw, speed, a[u], s[u], c, st[u], fi[u], sv[u], sl[u]);
+    stage4(ST, FI, SV, SL, xc, st, fi, sv, sl);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int i = 0; i < MAXC; ++i) old[i] = i == ol[u] ? of[u] : old[i];
+    }
+    if (hit) return true;
+  }
+  return false;
+}
+
+// Steps `tr` over jobs j0 .. j1 - 1 of staged row r alone, four at a time,
+// staging the outputs: the walk's chain, with nothing else on it.
+template <int MAXC, bool EXACT>
+__device__ __forceinline__ void tma_walk(const float* A, const float* S, float* ST, float* FI,
+                                         float* SV, int* SL, int r, int j0, int j1, int R, int lg,
+                                         float (&tr)[MAXC], const float (&speed)[MAXC], int c) {
+  int x = tma_at(r, j0, R, lg);
+  float4 a4 = *reinterpret_cast<const float4*>(A + x);
+  float4 s4 = *reinterpret_cast<const float4*>(S + x);
+  for (int j = j0; j < j1; j += 4) {
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    const int xc = x;
+    if (j + 4 < j1) {
+      x = tma_at(r, j + 4, R, lg);
+      a4 = *reinterpret_cast<const float4*>(A + x);
+      s4 = *reinterpret_cast<const float4*>(S + x);
+    }
+    float st[4], fi[4], sv[4];
+    int sl[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) tma_step<MAXC, EXACT>(tr, speed, a[u], s[u], c, st[u], fi[u], sv[u], sl[u]);
+    stage4(ST, FI, SV, SL, xc, st, fi, sv, sl);
+  }
+}
+
+// The one-launch kernel; see the top.  Block b holds rows bR .. bR + R - 1,
+// thread r·K + k owns segment k of row r.  EXACT: c == MAXC.
+// `stats` (or null): per block, the %globaltimer ns at the start, after
+// the speculation, the rounds, the walk and the stores, then the rounds
+// run, the segments re-run in them and the segments walked.
+template <int MAXC, bool EXACT>
+__global__ void __launch_bounds__(kTmaThreads)
+kw_tma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_s,
+              const __grid_constant__ CUtensorMap tm_st, const __grid_constant__ CUtensorMap tm_fi,
+              const __grid_constant__ CUtensorMap tm_sv, const __grid_constant__ CUtensorMap tm_sl,
+              const float* __restrict__ speeds, int B, int J, int c, int L, int K, int R, int lg,
+              int tiles, int max_rounds, long long* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char kw_raw[];
+  const uint32_t raw = hopper::smem_addr(kw_raw);
+  unsigned char* sm = kw_raw + (((raw + 127u) & ~127u) - raw);
+  const uint32_t base = hopper::smem_addr(sm);
+  const int tj = 1 << lg;
+  const TmaLayout lay(R, K, c, tj, tiles);
+  const float* A = reinterpret_cast<const float*>(sm);
+  const float* S = reinterpret_cast<const float*>(sm + lay.arr);
+  float* ST = reinterpret_cast<float*>(sm + 2 * lay.arr);
+  float* FI = reinterpret_cast<float*>(sm + 3 * lay.arr);
+  float* SV = reinterpret_cast<float*>(sm + 4 * lay.arr);
+  int* SL = reinterpret_cast<int*>(sm + 5 * lay.arr);
+  float* init = reinterpret_cast<float*>(sm + lay.init);
+  float* end = reinterpret_cast<float*>(sm + lay.end);
+  int* chg = reinterpret_cast<int*>(sm + lay.chg);
+  int* last = reinterpret_cast<int*>(sm + lay.last);
+  int* list = reinterpret_cast<int*>(sm + lay.list);
+  int* count = reinterpret_cast<int*>(sm + lay.walked);
+  int* walked = count + 1;
+  const uint32_t bars = base + static_cast<uint32_t>(lay.bars);
+  const int t = threadIdx.x;
+  const int r = t / K, k = t - r * K;
+  const int row0 = blockIdx.x * R;
+  const bool live = r < R && row0 + r < B;
+  const long long t_start = stats != nullptr && t == 0 ? global_ns() : 0;
+
+  if (t == 0) {
+    hopper::prefetch_tensormap(&tm_a);
+    hopper::prefetch_tensormap(&tm_s);
+    for (int i = 0; i < tiles; ++i) hopper::mbar_init(bars + 8 * i, 1);
+    hopper::mbar_init_fence();
+    *count = 0;
+    *walked = 0;
+  }
+  if (t < R) last[t] = -1;
+  float speed[MAXC];
+  load_speeds(speed, speeds, c);
+  __syncthreads();
+  if (t == 0) {  // every tile's arrivals and services, each tile on its own mbarrier
+    const uint32_t box = static_cast<uint32_t>(R * tj * 4);
+    for (int i = 0; i < tiles; ++i) {
+      hopper::mbar_expect_tx(bars + 8 * i, 2 * box);
+      hopper::tma_load_2d(base + i * box, &tm_a, bars + 8 * i, i * tj, row0);
+      hopper::tma_load_2d(base + static_cast<uint32_t>(lay.arr) + i * box, &tm_s, bars + 8 * i, i * tj, row0);
+    }
+    hopper::prefetch_tensormap(&tm_st);
+    hopper::prefetch_tensormap(&tm_fi);
+    hopper::prefetch_tensormap(&tm_sv);
+    hopper::prefetch_tensormap(&tm_sl);
+  }
+
+  // a. the speculative runs, as their tiles land
+  const int j0 = k * L, j1 = min(J, j0 + L);
+  if (live) {
+    for (int i = max(j0 - 1, 0) >> lg; i <= (j1 - 1) >> lg; ++i) hopper::mbar_wait(bars + 8 * i, 0);
+    const float from = k == 0 ? 0.0f : -INFINITY;
+    float fr[MAXC];
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) fr[i] = from;
+    const float prev = k > 0 ? A[tma_at(r, j0 - 1, R, lg)] : -INFINITY;
+    const bool sorted = tma_speculate<MAXC, EXACT>(A, S, ST, FI, SV, SL, r, j0, j1, R, lg, prev, fr,
+                                                   speed, c);
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      if (i < c) {
+        init[t * c + i] = from;
+        end[t * c + i] = fr[i];
+      }
+    }
+    if (!sorted) atomicMax(&last[r], k);
+  }
+  __syncthreads();
+  const long long t_spec = stats != nullptr && t == 0 ? global_ns() : 0;
+
+  // b. rounds: each segment whose predecessor's end state changed re-runs
+  // from it, all at once (listed, so that they fill as few warps as they
+  // can), until none changes, or until the rounds stop paying
+  int rounds = 0;
+  long long reruns = 0;
+  bool walk = false;
+  bool pend = live && k > 0;
+  while (K > 1) {
+    ++rounds;
+    if (pend) list[atomicAdd(count, 1)] = t;
+    __syncthreads();
+    const int n_ran = *count;
+    bool agreed = true;
+    int seg = 0, sk = 0;
+    float nw[MAXC];
+    if (t < n_ran) {
+      seg = list[t];
+      const int sr = seg / K;
+      sk = seg - sr * K;
+      float old[MAXC];
+#pragma unroll
+      for (int i = 0; i < MAXC; ++i) {
+        nw[i] = i < c ? end[(seg - 1) * c + i] : 0.0f;
+        old[i] = i < c ? init[seg * c + i] : 0.0f;
+        if (i < c) init[seg * c + i] = nw[i];
+      }
+      // equivalence is sound where the arrivals never decrease from here on
+      agreed = tma_rerun<MAXC, EXACT>(A, S, ST, FI, SV, SL, sr, sk * L, min(J, sk * L + L), R, lg,
+                                      sk > last[sr], nw, old, speed, c);
+    }
+    if (t < R * K) chg[t] = 0;
+    __syncthreads();  // every read of `end` and of the list is done
+    if (t == 0) *count = 0;
+    if (!agreed) {
+#pragma unroll
+      for (int i = 0; i < MAXC; ++i) {
+        if (i < c) end[seg * c + i] = nw[i];
+      }
+    }
+    const bool spawned = !agreed && sk + 1 < K;
+    if (spawned) chg[seg] = 1;
+    const int n_spawned = __syncthreads_count(spawned);
+    reruns += n_ran;
+    if (n_spawned == 0) break;
+    pend = live && k > 0 && chg[t - 1];
+    // a round pays while it settles two or more segments a row; a saturated
+    // row settles one a round, which the walk does without the re-runs
+    if (rounds >= max_rounds || n_ran - n_spawned < 2 * R) {
+      walk = true;
+      break;
+    }
+  }
+  const long long t_rounds = stats != nullptr && t == 0 ? global_ns() : 0;
+
+  // c. the walk: per row, in order, each segment whose predecessor changed,
+  // from the exact state, alone on the chain; at its end the state is
+  // tested against the segment's recorded end state at the next arrival,
+  // which says whether the next segment must be walked too
+  if (walk && live && k == 0) {
+    float tr[MAXC];
+    bool held = false;  // tr is the exact end state of the segment before
+    int n_walked = 0;
+    for (int kk = 1; kk < K; ++kk) {
+      const int u = t + kk;
+      if (!chg[u - 1]) {
+        held = false;
+        continue;
+      }
+      if (!held) {
+#pragma unroll
+        for (int i = 0; i < MAXC; ++i) tr[i] = i < c ? end[(u - 1) * c + i] : 0.0f;
+      }
+      const int s0 = kk * L, s1 = min(J, s0 + L);
+      tma_walk<MAXC, EXACT>(A, S, ST, FI, SV, SL, r, s0, s1, R, lg, tr, speed, c);
+      if (kk + 1 < K) {
+        float e[MAXC];
+#pragma unroll
+        for (int i = 0; i < MAXC; ++i) e[i] = i < c ? end[u * c + i] : 0.0f;
+        if (!coupled(tr, e, A[tma_at(r, s1, R, lg)], c, kk + 1 > last[r])) chg[u] = 1;
+      }
+      held = true;
+      ++n_walked;
+    }
+    atomicAdd(walked, n_walked);
+  }
+
+  // d. the outputs, by TMA from the staged arrays
+  hopper::fence_proxy_async_cta();
+  __syncthreads();
+  if (t == 0) {
+    const long long t_walk = stats != nullptr ? global_ns() : 0;
+    const uint32_t box = static_cast<uint32_t>(R * tj * 4);
+    for (int i = 0; i < tiles; ++i) {
+      const uint32_t at = base + i * box;
+      hopper::tma_store_2d(&tm_st, at + static_cast<uint32_t>(2 * lay.arr), i * tj, row0);
+      hopper::tma_store_2d(&tm_fi, at + static_cast<uint32_t>(3 * lay.arr), i * tj, row0);
+      hopper::tma_store_2d(&tm_sv, at + static_cast<uint32_t>(4 * lay.arr), i * tj, row0);
+      hopper::tma_store_2d(&tm_sl, at + static_cast<uint32_t>(5 * lay.arr), i * tj, row0);
+    }
+    hopper::bulk_commit();
+    hopper::bulk_wait();
+    if (stats != nullptr) {
+      long long* out = stats + static_cast<long long>(blockIdx.x) * 8;
+      out[0] = t_start;
+      out[1] = t_spec;
+      out[2] = t_rounds;
+      out[3] = t_walk;
+      out[4] = global_ns();
+      out[5] = rounds;
+      out[6] = reruns;
+      out[7] = *walked;
+    }
+  }
+}
+
+template <int MAXC, bool EXACT>
+int launch_tma(const float* a, const float* s, const float* sp, int B, int J, int c, int L, int R,
+               int lg, int max_rounds, float* st, float* fi, float* sv, int* sl, long long* stats,
+               cudaStream_t stream, int device) {
+  const int K = (J + L - 1) / L;
+  const int tj = 1 << lg;
+  const int tiles = (J + tj - 1) / tj;
+  const TmaLayout lay(R, K, c, tj, tiles);
+  auto kernel = kw_tma_kernel<MAXC, EXACT>;
+  static bool attr_set[kMaxDevices] = {};
+  if (!attr_set[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(kTmaSmemLimit));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set[device] = true;
+  }
+  CUtensorMap maps[6];
+  const void* ptrs[6] = {a, s, st, fi, sv, sl};
+  for (int m = 0; m < 6; ++m) {
+    const int e = hopper::encode_map_2d(&maps[m], ptrs[m],
+                                        m == 5 ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                        B, J, tj, R);
+    if (e != 0) return e;
+  }
+  const int threads = (R * K + 31) / 32 * 32;
+  kernel<<<(B + R - 1) / R, threads, lay.total, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                                                          maps[5], sp, B, J, c, L, K, R, lg, tiles,
+                                                          max_rounds, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry for ctypes.  `seg_len` is L, the jobs per segment; with
+// Shared memory a block of the one-launch kernel takes (bytes): R rows of
+// K segments, c slots, tiles of tj jobs.
+extern "C" long long kw_queue_tma_smem_bytes(int R, int K, int c, int tj, int tiles) {
+  return TmaLayout(R, K, c, tj, tiles).total;
+}
+
+// Plain C entry of path "tma" for ctypes: one launch, no scratch.  L jobs a
+// segment (a multiple of 4), R rows a block, tiles of 2^lg jobs, at most
+// `max_rounds` rounds before the walk, `stats` null or 8 int64 a block.  Returns 0, a CUDA error code, or
+// hopper.cuh's codes for the tensor maps (cudaErrorInvalidValue for a shape
+// the kernel does not take: J or L not a multiple of 4, R·K above 256,
+// unaligned pointers, too much shared memory, c above 32).
+extern "C" int kw_queue_tma_launch(const float* arrivals, const float* services,
+                                   const float* speeds, int B, int J, int c, int L, int R, int lg,
+                                   int max_rounds, float* starts, float* finishes,
+                                   float* svcs, int* slots, long long* stats, void* stream,
+                                   int device) {
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int K = L >= 4 ? (J + L - 1) / L : 0;
+  const int tiles = lg >= 5 && lg <= 8 ? (J + (1 << lg) - 1) >> lg : 0;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(arrivals) | reinterpret_cast<uintptr_t>(services) |
+                         reinterpret_cast<uintptr_t>(starts) | reinterpret_cast<uintptr_t>(finishes) |
+                         reinterpret_cast<uintptr_t>(svcs) | reinterpret_cast<uintptr_t>(slots);
+  if (B < 1 || J < 4 || J % 4 != 0 || L % 4 != 0 || K < 1 || R < 1 || R > 256 || R * K > kTmaThreads ||
+      tiles < 1 || tiles > kTmaMaxTiles || addr % 16 != 0 || c < 1 || c > 32 ||
+      max_rounds < 1 || TmaLayout(R, K, c, 1 << lg, tiles).total > kTmaSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KW_TMA(N, EXACT)                                                                        \
+  return launch_tma<N, EXACT>(arrivals, services, speeds, B, J, c, L, R, lg, max_rounds, starts, \
+                              finishes, svcs, slots, stats, st, device)
+  if (c == 1) KW_TMA(1, true);
+  if (c == 2) KW_TMA(2, true);
+  if (c == 3) KW_TMA(3, true);
+  if (c == 4) KW_TMA(4, true);
+  if (c <= 8) KW_TMA(8, false);
+  if (c <= 16) KW_TMA(16, false);
+  KW_TMA(32, false);
+#undef KW_TMA
+}
+
+// Plain C entry of path "two_launch" for ctypes.  `seg_len` is L, the jobs per segment; with
 // K = ceil(J / L), `scratch` (2·B·K·c floats) and `flags` (2·B·K ints) are
 // scratch the caller allocates.  Returns the CUDA error code of the launches
 // (0 on success); c above 32 or L below 1 returns cudaErrorInvalidValue.

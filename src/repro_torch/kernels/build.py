@@ -105,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kw_queue_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p, i]
     lib.kw_queue_launch.restype = i
+    lib.kw_queue_tma_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, i]
+    lib.kw_queue_tma_launch.restype = i
+    lib.kw_queue_tma_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.kw_queue_tma_smem_bytes.restype = ctypes.c_longlong
     lib.residual_sample_launch.argtypes = [p, p, i, i, i, i, p, p, i, p, i]
     lib.residual_sample_launch.restype = i
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p, i]

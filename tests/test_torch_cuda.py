@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import Empirical, SingleForkPolicy
 from repro_torch.fleet import vector
+from repro_torch.kernels import kw_queue as kwk
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain, kernel_path
 from repro_torch.kernels.kw_queue import kw_queue_plain
@@ -83,12 +84,21 @@ def _kw_load_inputs(B, J, c, load, seed, ints=False):
     return arr, svc, speeds
 
 
-def _kw_bit_equal(arr, svc, speeds, dev):
+def _kw_bit_equal(arr, svc, speeds, dev, path=None, seg=None):
+    """kw_queue on the card bit-equal to kw_queue_plain: through the
+    wrapper (one counted launch, on the path `kernel_path` names), or,
+    with `path`, through that kernel path (`seg`: path tma's segment)."""
     args = tuple(torch.from_numpy(np.ascontiguousarray(z)).to(dev) for z in (arr, svc, speeds))
-    before = ops.kw_queue.launches
-    got = ops.kw_queue(*args)
-    torch.cuda.synchronize()
-    assert ops.kw_queue.launches == before + 1
+    if path is None:
+        before, by_path = ops.kw_queue.launches, dict(ops.kw_queue.launches_by_path)
+        got = ops.kw_queue(*args)
+        torch.cuda.synchronize()
+        assert ops.kw_queue.launches == before + 1
+        taken = kwk.kernel_path(*arr.shape, len(speeds), aligned=True)
+        assert ops.kw_queue.launches_by_path[taken] == by_path[taken] + 1
+    else:
+        got = kwk.launch(*args, path, seg=seg)
+        torch.cuda.synchronize()
     for a, b in zip(got, kw_queue_plain(*args)):
         assert torch.equal(a, b)
 
@@ -118,13 +128,14 @@ def test_kw_queue_segment_parallel_kernel_is_bit_equal_on_card(B, J, c, load, in
 
 @pytest.mark.parametrize("seg", [1, 32, 64, 128, 256, 5000])
 def test_kw_queue_kernel_any_segment_length_on_card(seg, monkeypatch):
+    """Both paths at any segment length: two_launch at SEGMENT_JOBS = seg,
+    tma at seg rounded down to a multiple of 4 (4 at least)."""
     dev = _card()
-    from repro_torch.kernels import kw_queue as kw_module
-
-    monkeypatch.setattr(kw_module, "SEGMENT_JOBS", seg)
+    monkeypatch.setattr(kwk, "SEGMENT_JOBS", seg)
     arr, svc, speeds = _kw_load_inputs(40, 1000, 4, 0.85, seed=seg)
     arr[5, 100:900:3] -= 2.0
-    _kw_bit_equal(arr, svc, speeds, dev)
+    _kw_bit_equal(arr, svc, speeds, dev, path="two_launch")
+    _kw_bit_equal(arr, svc, speeds, dev, path="tma", seg=max(4, seg - seg % 4))
 
 
 # tests/test_torch_kernels.py's cases of the CPU twin of the algorithm
@@ -143,28 +154,117 @@ KW_TWO_PASS_HARD = [(1, 0.9, (2.0, 1.0, 1.0), None), (0, 0.8, (4.0, 2.0, 1.0), "
 
 @pytest.mark.parametrize("B,J,c,L,load,ints,unsorted", KW_TWO_PASS_CASES)
 def test_kw_queue_kernel_on_the_cpu_twins_cases_on_card(B, J, c, L, load, ints, unsorted, monkeypatch):
+    """The CPU twins' cases: path two_launch at SEGMENT_JOBS = L, path tma
+    at segments of L (where J is a multiple of 4) and through the wrapper."""
     dev = _card()
-    from repro_torch.kernels import kw_queue as kw_module
-
-    monkeypatch.setattr(kw_module, "SEGMENT_JOBS", L)
+    monkeypatch.setattr(kwk, "SEGMENT_JOBS", L)
     arr, svc, speeds = _kw_load_inputs(B, J, c, load, seed=B * J + c, ints=ints)
     if unsorted:
         arr[1, 10:J:7] -= 3.0
+    _kw_bit_equal(arr, svc, speeds, dev, path="two_launch")
+    if J % 4 == 0:
+        _kw_bit_equal(arr, svc, speeds, dev, path="tma", seg=L)
     _kw_bit_equal(arr, svc, speeds, dev)
 
 
 @pytest.mark.parametrize("seed,load,speeds,unsorted", KW_TWO_PASS_HARD)
 def test_kw_queue_kernel_reruns_on_card(seed, load, speeds, unsorted, monkeypatch):
     dev = _card()
-    from repro_torch.kernels import kw_queue as kw_module
-
-    monkeypatch.setattr(kw_module, "SEGMENT_JOBS", 8)
+    monkeypatch.setattr(kwk, "SEGMENT_JOBS", 8)
     arr, svc, _ = _kw_load_inputs(4, 300, len(speeds), load, seed=seed)
     if unsorted == "every 7th":
         arr[1, 10:300:7] -= 3.0
     elif unsorted == "one":
         arr[1, 150] -= 30.0
-    _kw_bit_equal(arr, svc, np.array(speeds, np.float32), dev)
+    sp = np.array(speeds, np.float32)
+    _kw_bit_equal(arr, svc, sp, dev, path="two_launch")
+    _kw_bit_equal(arr, svc, sp, dev, path="tma", seg=8)
+    _kw_bit_equal(arr, svc, sp, dev)
+
+
+# path tma at the main paths' shape classes (B, J, c): frontier and DAG
+# stages, the fleet gates' chaos lane and row 1, a re-plan, phase paper's
+# c = 1 frontier; at loads below, near and above saturation
+KW_TMA_CLASSES = [(512, 2048, 4), (512, 2048, 1), (144, 600, 2), (96, 384, 3), (232, 192, 3), (64, 300, 1)]
+
+
+@pytest.mark.parametrize("load", [0.7, 0.85, 1.2])
+@pytest.mark.parametrize("B,J,c", KW_TMA_CLASSES)
+def test_kw_queue_tma_path_at_the_main_path_classes_is_bit_equal_on_card(B, J, c, load):
+    dev = _card()
+    assert kwk.kernel_path(B, J, c, aligned=True) == "tma"
+    arr, svc, speeds = _kw_load_inputs(B, J, c, load, seed=B + J + c)
+    _kw_bit_equal(arr, svc, speeds, dev)
+
+
+# (B, J, c, load, seg, unsorted): a row longer than one block's segments at
+# the plan's cut (L raised until K <= 256) and at a forced 12 (raised too);
+# J <= 256; more rows than SMs (rows grouped in a block); c = 32; an
+# unsorted row
+KW_TMA_EDGES = [
+    (2, 8192, 4, 0.85, None, False), (2, 4096, 3, 0.9, 12, False), (40, 100, 4, 0.7, None, False),
+    (300, 192, 3, 0.9, None, False), (70, 300, 32, 0.7, None, False), (64, 1000, 4, 0.5, None, True),
+    (8, 4, 2, 0.7, None, False),
+]
+
+
+@pytest.mark.parametrize("B,J,c,load,seg,unsorted", KW_TMA_EDGES)
+def test_kw_queue_tma_path_edges_are_bit_equal_on_card(B, J, c, load, seg, unsorted):
+    dev = _card()
+    plan = kwk.tma_plan(B, J, c, seg=seg)
+    assert plan is not None and plan.R * plan.K <= kwk.TMA_THREADS
+    arr, svc, speeds = _kw_load_inputs(B, J, c, load, seed=B * J + c)
+    if unsorted:
+        arr[3, 10:J:7] -= 3.0
+    _kw_bit_equal(arr, svc, speeds, dev, path="tma", seg=seg)
+    _kw_bit_equal(arr, svc, speeds, dev)
+
+
+def test_kw_queue_unaligned_rows_and_views_take_the_two_launch_path_on_card():
+    dev = _card()
+    # J not a multiple of 4: no TMA map has rows of that pitch
+    arr, svc, speeds = _kw_load_inputs(16, 602, 2, 0.8, seed=5)
+    assert kwk.kernel_path(16, 602, 2, aligned=True) == "two_launch"
+    _kw_bit_equal(arr, svc, speeds, dev)
+    # views 4 bytes off a 16-byte boundary
+    arr, svc, speeds = _kw_load_inputs(16, 600, 2, 0.8, seed=6)
+    a = torch.empty(16 * 600 + 1, device=dev)[1:].view(16, 600)
+    s = torch.empty(16 * 600 + 1, device=dev)[1:].view(16, 600)
+    a.copy_(torch.from_numpy(arr))
+    s.copy_(torch.from_numpy(svc))
+    sp = torch.from_numpy(speeds).to(dev)
+    by_path = dict(ops.kw_queue.launches_by_path)
+    got = ops.kw_queue(a, s, sp)
+    assert ops.kw_queue.launches_by_path["two_launch"] == by_path["two_launch"] + 1
+    for x, y in zip(got, kw_queue_plain(a, s, sp)):
+        assert torch.equal(x, y)
+
+
+def test_kw_queue_tma_stats_and_shared_memory_on_card():
+    """The kernel's own stats: a saturated queue is walked after one round,
+    a light one is settled by rounds; the wrapper's shared-memory count is
+    the kernel's."""
+    dev = _card()
+    from repro_torch.kernels.build import load_library
+
+    lib = load_library()
+    for B, J, c in KW_TMA_CLASSES:
+        p = kwk.tma_plan(B, J, c)
+        assert lib.kw_queue_tma_smem_bytes(p.R, p.K, c, p.tile, p.tiles) == p.smem
+    read = {}
+    for load in (0.5, 1.2):
+        arr, svc, speeds = _kw_load_inputs(64, 2048, 4, load, seed=11)
+        args = tuple(torch.from_numpy(z).to(dev) for z in (arr, svc, speeds))
+        plan = kwk.tma_plan(64, 2048, 4, kwk.n_sms(dev))
+        stats = torch.zeros((plan.blocks, 8), dtype=torch.int64, device=dev)
+        got = kwk.launch(*args, "tma", stats=stats)
+        for a, b in zip(got, kw_queue_plain(*args)):
+            assert torch.equal(a, b)
+        st = stats.cpu()
+        assert bool((st[:, 1] >= st[:, 0]).all() and (st[:, 4] >= st[:, 3]).all() and (st[:, 3] >= st[:, 2]).all())
+        read[load] = st
+    assert int(read[1.2][:, 7].min()) >= plan.K // 2  # every row walked
+    assert int(read[0.5][:, 7].sum()) < int(read[1.2][:, 7].sum()) // 10
 
 
 @pytest.mark.parametrize("m,s,k,n", [(33, 50, 3, 1000), (8, 16, 1, 100), (100, 205, 4, 488)])

@@ -25,6 +25,7 @@ from repro.models.ssm import ssd_chunked as jssd_chunked
 from repro_torch.fleet.vector import lindley
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import PATHS, flash_attention_plain, kernel_path
+from repro_torch.kernels import kw_queue as kwk
 from repro_torch.kernels.kw_queue import kw_queue_plain
 from repro_torch.kernels.residual_sampler import residual_sample_plain
 from repro_torch.kernels import ssd_scan as ssd
@@ -341,6 +342,211 @@ def test_kw_queue_two_pass_reruns_are_bit_equal(seed, load, speeds, unsorted):
     elif unsorted == "one":
         arr[1, 150] -= 30.0
     _check_two_pass(arr, svc, np.array(speeds, np.float32), 8)
+
+
+def _kw_rerun_rows(arr, svc, speeds, q, j0, j1, nw, old, equiv, outs):
+    """csrc/kw_queue.cu's `tma_rerun` for a batch of segments: segment i
+    (row q[i], jobs j0[i] .. j1[i] - 1) re-runs from nw[i] beside the run
+    whose outputs are in `outs`, its state rebuilt from old[i] and those
+    outputs' slots and finishes, four jobs at a time, writing the new
+    outputs; before each four the states are tested at the first one's
+    arrival, and a segment that agrees stops after those four.  Returns
+    (agreed, the new runs' end states)."""
+    n, c = nw.shape
+    nw, old = nw.clone(), old.clone()
+    agreed = torch.zeros(n, dtype=torch.bool)
+    going = j0 < j1
+    hit = torch.zeros(n, dtype=torch.bool)
+    for t in range(int((j1 - j0).max()) if n else 0):
+        j = torch.minimum(j0 + t, j1 - 1)
+        going &= j0 + t < j1
+        a, s = arr[q, j], svc[q, j]
+        if t % 4 == 0:
+            hit = going & _kw_agree(nw, old, a, equiv)
+        old_slot, old_fin = outs[3][q, j].long(), outs[1][q, j]
+        stepped, o = _kw_step(nw, a, s, speeds)
+        nw = torch.where(going[:, None], stepped, nw)
+        for out, v in zip(outs, o):
+            out[q[going], j[going]] = v[going]
+        rebuilt = old.scatter(1, old_slot[:, None], old_fin[:, None])
+        old = torch.where(going[:, None], rebuilt, old)
+        done = going & hit & ((t % 4 == 3) | (j0 + t + 1 == j1))
+        agreed |= done
+        going &= ~done
+    return agreed, nw
+
+
+def _kw_walk_rows(arr, svc, speeds, q, j0, j1, tr, outs):
+    """csrc/kw_queue.cu's `tma_walk` for a batch: segment i (row q[i], jobs
+    j0[i] .. j1[i] - 1) stepped from tr[i], writing its outputs into
+    `outs`; returns the end states."""
+    for t in range(int((j1 - j0).max())):
+        j = torch.minimum(j0 + t, j1 - 1)
+        going = j0 + t < j1
+        stepped, o = _kw_step(tr, arr[q, j], svc[q, j], speeds)
+        tr = torch.where(going[:, None], stepped, tr)
+        for out, v in zip(outs, o):
+            out[q[going], j[going]] = v[going]
+    return tr
+
+
+def _kw_one_launch(arr, svc, speeds, L, R, max_rounds=8):
+    """csrc/kw_queue.cu's path "tma" (`kw_tma_kernel`) on the CPU, step for
+    step: segments of L jobs speculated from all slots idle (segment 0 from
+    zeros); then rounds, in every block of R rows at once, in which each
+    segment whose predecessor's end state changed re-runs from it, while a
+    block's round settles (re-runs without a change to pass on) at least
+    two segments a row, at most `max_rounds`; then, in a block where
+    rounds stopped paying, one walker a row steps in order every segment
+    whose predecessor changed, testing its end state against the recorded
+    one at the next arrival.  Returns the outputs and, per block, (rounds, re-runs in rounds, walked
+    segments)."""
+    B, J = arr.shape
+    c = speeds.shape[0]
+    K = -(-J // L)
+    outs = (torch.empty_like(arr), torch.empty_like(arr), torch.empty_like(arr),
+            torch.empty((B, J), dtype=torch.int32))
+    q = torch.arange(B).repeat_interleave(K)
+    k = torch.arange(K).repeat(B)
+    block = q // R
+    n_blocks = -(-B // R)
+    j0 = k * L
+    j1 = torch.clamp(j0 + L, max=J)
+    a_pad = torch.cat([torch.full((B, 1), -torch.inf), arr], 1)
+    rises = a_pad[:, 1:] >= a_pad[:, :-1]
+    flags = torch.stack([rises[:, kk * L:min(J, kk * L + L)].all(1) for kk in range(K)], 1)
+    last_unsorted = torch.tensor([max([kk for kk in range(K) if not flags[b, kk]], default=-1)
+                                  for b in range(B)])
+    equiv = k > last_unsorted[q]
+
+    # a. the speculative runs
+    init = torch.where(k[:, None] == 0, 0.0, -torch.inf).expand(B * K, c).clone()
+    spec = tuple(torch.empty((B * K, J), dtype=o.dtype) for o in outs)
+    _, _, end, _ = _kw_run(arr[q], svc[q], speeds, j0, j1, init, spec)
+    for o, so in zip(outs, spec):
+        for i in range(B * K):
+            o[q[i], j0[i]:j1[i]] = so[i, j0[i]:j1[i]]
+
+    def rerun(sel):
+        """Re-runs the segments `sel` from their predecessors' end states."""
+        nw = end[sel - 1].clone()
+        agreed, fresh = _kw_rerun_rows(arr, svc, speeds, q[sel], j0[sel], j1[sel], nw, init[sel],
+                                       equiv[sel], outs)
+        init[sel] = nw
+        end[sel[~agreed]] = fresh[~agreed]
+        return agreed
+
+    # b. rounds, block by block
+    stats = torch.zeros((n_blocks, 3), dtype=torch.long)
+    chg = torch.zeros(B * K, dtype=torch.bool)
+    going = torch.ones(n_blocks, dtype=torch.bool) if K > 1 else torch.zeros(n_blocks, dtype=torch.bool)
+    walk = torch.zeros(n_blocks, dtype=torch.bool)
+    pend = k > 0
+    rnd = 0
+    while bool(going.any()):
+        rnd += 1
+        pend &= going[block]
+        sel = torch.nonzero(pend)[:, 0]
+        spawned = torch.zeros(B * K, dtype=torch.bool)
+        if len(sel):
+            agreed = rerun(sel)
+            spawned[sel] = ~agreed & (k[sel] + 1 < K)
+        n_ran = torch.zeros(n_blocks, dtype=torch.long).index_add_(0, block, pend.long())
+        n_spawned = torch.zeros(n_blocks, dtype=torch.long).index_add_(0, block, spawned.long())
+        stats[going, 0] += 1
+        stats[:, 1] += n_ran
+        chg = torch.where(going[block], spawned, chg)
+        stop = going & (n_spawned == 0)
+        walk |= going & ~stop & ((rnd >= max_rounds) | (n_ran - n_spawned < 2 * R))
+        going &= ~stop & ~walk
+        pend = (k > 0) & torch.roll(chg, 1) & going[block]
+
+    # c. the walk: in each walking row, in order, every segment whose
+    # predecessor changed, the recursion alone from the exact state (the
+    # walk's own, or the recorded end state before it), then its end state
+    # against the recorded one at the next arrival
+    walkers = torch.nonzero(walk[block] & (k == 0))[:, 0]
+    held = torch.zeros(len(walkers), dtype=torch.bool)
+    tr = torch.zeros((len(walkers), c))
+    for kk in range(1, K):
+        u = walkers + kk
+        held &= chg[u - 1]
+        sel = torch.nonzero(chg[u - 1])[:, 0]
+        if not len(sel):
+            continue
+        us = u[sel]
+        tr[sel] = _kw_walk_rows(arr, svc, speeds, q[us], j0[us], j1[us],
+                                torch.where(held[sel, None], tr[sel], end[us - 1]), outs)
+        if kk + 1 < K:
+            same = _kw_agree(tr[sel], end[us], arr[q[us], j1[us]], equiv[us + 1])
+            chg[us[~same]] = True
+        held[sel] = True
+        stats[:, 2].index_add_(0, block[us], torch.ones(len(us), dtype=torch.long))
+    return outs, stats
+
+
+def _check_one_launch(arr, svc, speeds, L, R):
+    want = kw_queue_plain(*_t(arr, svc, speeds))
+    _assert_kw_equal(want, jref.kw_queue_ref(*_j(arr, svc, speeds)))
+    outs, stats = _kw_one_launch(*_t(arr, svc, speeds), L, R)
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
+    return stats
+
+
+@pytest.mark.parametrize("seg", ["case", "plan"])
+@pytest.mark.parametrize("B,J,c,L,load,ints,unsorted", KW_TWO_PASS_CASES)
+def test_kw_queue_one_launch_rounds_and_walk_are_bit_equal(B, J, c, L, load, ints, unsorted, seg):
+    """The case's segment length, then the plan's (12 where J is not a
+    multiple of 4: path "tma" refuses such rows, the algorithm holds), with
+    the plan's rows a block."""
+    plan = kwk.tma_plan(B, J, c)
+    if seg == "plan":
+        L = plan.L if plan is not None else 12
+    R = plan.R if plan is not None else 1
+    arr, svc, speeds = _kw_load_inputs(B, J, c, load, seed=B * J + c, ints=ints)
+    if unsorted:  # one row out of FIFO order: only raw-state coupling is sound
+        arr[1, 10:J:7] -= 3.0
+    stats = _check_one_launch(arr, svc, speeds, L, R)
+    if load >= 1.5 and J > 3 * L:
+        assert int(stats[:, 2].sum()) > 0  # saturated: the rounds stop paying, the rows are walked
+    if load <= 0.5 and not unsorted and c <= 4 and J > L:
+        assert int(stats[:, 2].sum()) == 0 and int(stats[:, 0].max()) <= 3
+
+
+@pytest.mark.parametrize("seed,load,speeds,unsorted", KW_TWO_PASS_HARD)
+def test_kw_queue_one_launch_reruns_are_bit_equal(seed, load, speeds, unsorted):
+    arr, svc, _ = _kw_load_inputs(4, 300, len(speeds), load, seed=seed)
+    if unsorted == "every 7th":
+        arr[1, 10:300:7] -= 3.0
+    elif unsorted == "one":
+        arr[1, 150] -= 30.0
+    # 8-job segments, two rows a block: many rounds, walks in some blocks
+    _check_one_launch(arr, svc, np.array(speeds, np.float32), 8, 2)
+
+
+def test_kw_queue_tma_plan_fills_the_card_and_picks_paths():
+    # the main paths' shapes: several warps of chains an SM where B·J allows
+    plan = kwk.tma_plan(512, 2048, 4)
+    assert plan.L % 8 == 4 and 512 * plan.K <= 132 * kwk.TMA_WARPS_PER_SM * 32
+    assert 512 * plan.K > 132 * 8 * 32 and plan.R == 1
+    # fewer rows keep the segment length: a row's segments are capped
+    assert kwk.tma_plan(48, 2048, 4).L == plan.L and plan.K <= kwk.TMA_MAX_SEGMENTS
+    for B, J, c in [(144, 600, 2), (96, 384, 3), (232, 192, 3), (64, 300, 1)]:
+        plan = kwk.tma_plan(B, J, c)
+        assert plan.L == kwk.TMA_MIN_SEGMENT and plan.K > 1  # J <= 256 is segmented too
+        assert plan.R * plan.K <= kwk.TMA_THREADS and plan.blocks * plan.R >= B
+        assert plan.smem == kwk.tma_smem_bytes(plan.R, plan.K, c, plan.tile, plan.tiles)
+        assert kwk.kernel_path(B, J, c, aligned=True) == "tma"
+    # a long row takes longer segments so that its segments fit in a block
+    plan = kwk.tma_plan(2, 8192, 4)
+    assert plan.K <= kwk.TMA_THREADS < 8192 // kwk.TMA_MIN_SEGMENT
+    # refused: rows not a multiple of 4 jobs, views off 16 bytes, rows too long
+    assert kwk.kernel_path(8, 602, 2, aligned=True) == "two_launch"
+    assert kwk.kernel_path(8, 600, 2, aligned=False) == "two_launch"
+    assert kwk.tma_plan(2, 12000, 4) is None and kwk.kernel_path(2, 12000, 4, True) == "two_launch"
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kwk.tma_plan(8, 600, 2, seg=10)
 
 
 RES_CASES = [(33, 50, 3, 1000), (8, 16, 1, 100), (100, 205, 4, 488)]
