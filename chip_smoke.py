@@ -16,10 +16,10 @@ JAX package.  Phases, one JSON line each:
             stablelm-3b, gemma-2b and qwen3-32b (each on the Hopper kernel,
             timed beside scaled_dot_product_attention and the mma.sync
             kernel on the same inputs); ssd_scan at zamba2-1.2b's prefill
-            shape and mamba2-2.7b's geometry (each on the Hopper kernel,
-            timed beside the mma_sync kernel on the same inputs, with the
-            clusters the card holds at once); every case naming its kernel
-            path
+            shape and mamba2-2.7b's geometry at 1024 and 4096 tokens (each
+            on the Hopper kernel, timed in turns with the mma_sync kernel on
+            the same inputs, with the clusters the card holds at once);
+            every case naming its kernel path
   frontier  `frontier` on the Job 1 trace at full width: n=1026 tasks,
             c=4 gang blocks, 2048 jobs × 16 trials, 8 policies × 4 loads
   policy_search  the controller's inner loop at the ρ=0.7 load
@@ -117,6 +117,14 @@ JAX package.  Phases, one JSON line each:
             re-plans' kw_queue calls bit-equal, the sketch tails against
             np.percentile, the SLO report, the private trace's Chrome
             round trip
+  serve_ssm `repro_torch.launch.serve --arch mamba2-2.7b` at full width and
+            depth (64 layers, bf16, seed-0 weights), 2 batches x 2 requests
+            of 4096 prompt tokens and 8 new tokens, after phase serve's
+            model is freed: the checks of phase serve (ssd_scan launches =
+            64 x prefills, all on the Hopper kernel, whose clusters of 8
+            walk the 32 chunks in 4 groups; every kernel call of one
+            prefill against its plain version; decode against prefill in
+            bfloat16 and float32; kernels against plain in float32)
   train     `repro_torch.launch.train` on qwen2-0.5b at full width and
             depth (24 layers, 630.4 M parameters, bf16, float32 AdamW
             moments): 30 steps of 8 x 512 tokens in 8 shards on a Pareto(2,
@@ -151,10 +159,11 @@ JAX package.  Phases, one JSON line each:
             and memory terms (predicted MFU) against the measured plain step
             (read MFU).  Neither phase launches one of the four kernels
 
-The serving phases (`serve_moe`, `configs`, `serve`, `fleet_serve`) also
-hold every bf16 flash launch of their main paths, and every checked call,
-to the Hopper (TMA and wgmma) kernel by `flash_attention.launches_by_path`,
-and (`serve`, `fleet_serve`) every ssd_scan launch to its Hopper kernel by
+The serving phases (`serve_moe`, `configs`, `serve`, `fleet_serve`,
+`serve_ssm`) also hold every bf16 flash launch of their main paths, and
+every checked call, to the Hopper (TMA and wgmma) kernel by
+`flash_attention.launches_by_path`, and (`serve`, `fleet_serve`,
+`serve_ssm`) every ssd_scan launch to its Hopper kernel by
 `ssd_scan.launches_by_path`; the line `launches` carries those counts by
 phase, and the kernel table their sums by path.
 
@@ -183,9 +192,10 @@ read after it, and again for `dag_gates` and for `paper`), flash_attention and s
 just before it, read just after), flash_attention from the MoE serve
 path and from the configs path (each set to 0 just before its phase and
 read just after), kw_queue from the controller's drill
-(phase `fleet_adaptive`) and kw_queue, flash_attention and ssd_scan from
-fleet-backed serving (phase `fleet_serve`), each set to 0 just before its
-phase and read just after.  The calls made only to compare with them (the
+(phase `fleet_adaptive`), kw_queue, flash_attention and ssd_scan from
+fleet-backed serving (phase `fleet_serve`) and ssd_scan from the SSM serve
+path (phase `serve_ssm`), each set to 0 just before its phase and read
+just after.  The calls made only to compare with them (the
 kernels against their plain versions, the reference `frontier` of
 `dag_one_stage`, the rollouts that give the order statistics, the
 single-fork grid of `dag_general`, kw_queue at its gate's shape, the re-plans' queues against
@@ -303,10 +313,16 @@ FULL = dict(
     # one kv head expanded to 8) and qwen3-32b (timed too)
     flash_shapes=((1, 1024, 32, 64), (1, 1024, 16, 128), (1, 1024, 32, 80), (1, 1024, 8, 256),
                   (1, 1024, 64, 128)),
-    # the SSM of one Zamba2-1.2B prefill, then mamba2-2.7b's geometry (timed too)
-    ssd_shapes=((1, 1024, 64, 64, 1, 64, 128), (1, 1024, 80, 64, 1, 128, 128)),
+    # the SSM of one Zamba2-1.2B prefill, then mamba2-2.7b's geometry at 1024
+    # tokens and at phase serve_ssm's 4096 (32 chunks: four groups of a
+    # cluster of 8), all timed
+    ssd_shapes=((1, 1024, 64, 64, 1, 64, 128), (1, 1024, 80, 64, 1, 128, 128), (1, 4096, 80, 64, 1, 128, 128)),
     flash_cases=FLASH_CASES + FLASH_BF16_CASES + FLASH_D16_CASES, ssd_cases=SSD_CASES + SSD_BF16_CASES,
     serve=dict(arch="zamba2-1.2b", reduced=False, requests=8, batches=2, prompt=1024, steps=32),
+    # mamba2-2.7b at full width and depth (64 layers, bf16, 5.4 GB; float32
+    # for the checks, 10.8 GB): 2 batches x 2 requests of 4096 prompt tokens
+    # and 8 new tokens
+    serve_ssm=dict(arch="mamba2-2.7b", reduced=False, requests=2, batches=2, prompt=4096, steps=8),
     # moonshot-v1-16b-a3b at full width and depth: 2 batches x 4 requests of
     # 1024 prompt tokens and 8 new tokens; the float32 checks on its first 4
     # layers (bf16 48 layers: 53.8 GiB; float32: 108 GiB)
@@ -678,13 +694,32 @@ def flash_kernel_cases(torch, device, sizes, g, flush) -> list:
     return cases
 
 
+def ssd_args(torch, shape, dtype, g, device, carry=False) -> tuple:
+    """ssd_scan's (x, dt, A, B, C, D) at `shape` (Bt, S, H, P, G, N) from
+    `g`.  With `carry` the state outlives a chunk, as trained weights keep
+    it: dt·A sums to about -1 over 128 steps and dt is gated by e^N(0, 1)
+    over spans of 64 steps, so most chunks decay by 0.1 to 0.8, each by its
+    own amount; without, a chunk decays by about e^-100."""
+    bt, s, h, p, gr, n = shape
+    x = torch.randn((bt, s, h, p), generator=g, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((bt, s, h), generator=g, device=device))
+    A = -torch.exp(torch.randn((h,), generator=g, device=device) * 0.3)
+    B = torch.randn((bt, s, gr, n), generator=g, device=device).to(dtype)
+    C = torch.randn((bt, s, gr, n), generator=g, device=device).to(dtype)
+    if carry:
+        gate = torch.randn((bt, -(-s // 64), h), generator=g, device=device).exp()
+        dt, A = dt * gate.repeat_interleave(64, dim=1)[:, :s], A / 170.0
+    return x, dt, A, B, C, torch.ones((h,), device=device)
+
+
 def ssd_kernel_cases(torch, device, sizes, g, flush) -> list:
     """ssd_scan against its plain version: the main path's shapes
-    (`sizes["ssd_shapes"]`, bf16, first, timed, with the bound, the CUDA
-    launches per call and, on the card, the mma_sync kernel's time and
-    error on the same inputs), then `sizes["ssd_cases"]` (SSD_CASES and
-    SSD_BF16_CASES at full size).  Each case names the kernel path that
-    took it."""
+    (`sizes["ssd_shapes"]`, bf16, first, on inputs that carry the state
+    across chunks (`ssd_args`), timed, with the bound, the CUDA
+    launches per call and, on the card, the mma_sync kernel's error on the
+    same inputs and both kernels' times, taken in turns), then
+    `sizes["ssd_cases"]` (SSD_CASES and SSD_BF16_CASES at full size).  Each
+    case names the kernel path that took it."""
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ssd_scan import CUDA_LAUNCHES, ssd_scan, ssd_scan_plain
 
@@ -692,13 +727,8 @@ def ssd_kernel_cases(torch, device, sizes, g, flush) -> list:
     cases = []
     for i, (bt, s, h, p, gr, n, q, dt) in enumerate((*timed, *sizes["ssd_cases"])):
         dtype = getattr(torch, dt)
-        x = torch.randn((bt, s, h, p), generator=g, device=device).to(dtype)
-        dts = torch.nn.functional.softplus(torch.randn((bt, s, h), generator=g, device=device))
-        A = -torch.exp(torch.randn((h,), generator=g, device=device) * 0.3)
-        Bm = torch.randn((bt, s, gr, n), generator=g, device=device).to(dtype)
-        Cm = torch.randn((bt, s, gr, n), generator=g, device=device).to(dtype)
-        Dv = torch.ones((h,), device=device)
-        args = (x, dts, A, Bm, Cm, Dv)
+        args = ssd_args(torch, (bt, s, h, p, gr, n), dtype, g, device, carry=i < len(timed))
+        x = args[0]
         rtol, atol = (5e-2, 2e-1) if dtype == torch.bfloat16 else (1e-3, 1e-3)
         what = f"ssd_scan {(bt, s, h, p, gr, n, q, dt)}"
         by_path = dict(ssd_scan.launches_by_path)
@@ -710,17 +740,24 @@ def ssd_kernel_cases(torch, device, sizes, g, flush) -> list:
         if i < len(timed):
             elt = x.element_size()
             nc = -(-s // q)
+            if nc > 1:  # a kernel that dropped the carried history would fail
+                _, hf_last = ssd_scan_plain(*(t[:, (nc - 1) * q:] if t.dim() > 1 else t for t in args), chunk=q)
+                check(not torch.allclose(hf_p, hf_last, rtol=rtol, atol=atol),
+                      f"{what}: h_final carries the state of the chunks before the last")
             macs = bt * h * nc * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
             if device.type == "cuda":
                 check(path == ["wgmma_tma"], f"{what} took the wgmma_tma kernel, not {path}")
                 y_m, hf_m = ssd.launch(*args, q, "mma_sync")
                 case["mma_sync_max_abs_err"] = max(_close(torch, y_m, y_p, rtol, atol, what + " y on mma_sync"),
                                                    _close(torch, hf_m, hf_p, rtol, atol, what + " h_final on mma_sync"))
-                case["mma_sync_ms"] = time_ms(torch, lambda: ssd.launch(*args, q, "mma_sync"), sizes["kernel_reps"],
-                                              device, flush, ahead=True)
+                # the two kernels in turns on the same inputs
+                case.update(time_turns(torch, {"ms": lambda: ssd_scan(*args, chunk=q),
+                                               "mma_sync_ms": lambda: ssd.launch(*args, q, "mma_sync")},
+                                       sizes["kernel_reps"], device, flush))
                 case["hopper_clusters"] = ssd.hopper_clusters(p, n, nc, device)
+            else:
+                case["ms"] = time_ms(torch, lambda: ssd_scan(*args, chunk=q), sizes["kernel_reps"], device)
             case.update(
-                ms=time_ms(torch, lambda: ssd_scan(*args, chunk=q), sizes["kernel_reps"], device, flush, ahead=True),
                 plain_ms=time_ms(torch, lambda: ssd_scan_plain(*args, chunk=q), sizes["plain_reps"], device),
                 library_ms=None, cuda_launches_per_call=CUDA_LAUNCHES[case["path"]] if path else 0,
                 bound=bound(2 * bt * s * h * p * elt + 2 * bt * s * gr * n * elt + bt * s * h * 4
@@ -2176,27 +2213,31 @@ def free_device(torch, device) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_serve(torch, device, sizes) -> dict:
-    """`repro_torch.launch.serve` as a user runs it, with the counters of
-    its kernels set to 0 just before and read just after; then checks on
-    one request's prefill.  It serves the hybrid (Zamba2-1.2B), whose
-    model phase `fleet_serve` reuses, after phases `serve_moe` (the moe
-    family at full width and depth) and `configs` (the other new configs:
-    dense, MLA + MoE, encdec, vlm) have each freed their models.
+def phase_serve(torch, device, sizes, phase: str = "serve") -> tuple:
+    """`repro_torch.launch.serve` as a user runs it, on `sizes[phase]`, with
+    the counters of its kernels set to 0 just before and read just after;
+    then checks on one request's prefill.  Phase `serve` serves the hybrid
+    (Zamba2-1.2B), whose model phase `fleet_serve` reuses, after phases
+    `serve_moe` (the moe family at full width and depth) and `configs`
+    (the other new configs: dense, MLA + MoE, encdec, vlm) have each freed
+    their models; phase `serve_ssm` (`phase_serve_ssm`) the pure SSM
+    (mamba2-2.7b) at 4096-token prompts.
 
     Prefill then decode is held to 0.05 in bfloat16, as served, and in
     float32 on the same weights cast up exactly.  The prefill's logits
     with the kernels against those with the plain versions are held to
-    2e-2 in float32 only: through 38 random-weight layers the model in
+    2e-2 in float32 only: through 38 random-weight layers the hybrid in
     bfloat16 turns changes of a rounding into logit differences of 10-50%
     (PERF.md), so the bfloat16 number is reported, and in
     bfloat16 every kernel call of the prefill is held instead against its
-    plain version on the same inputs, at the kernel tolerances."""
+    plain version on the same inputs, at the kernel tolerances.  Returns
+    the kernel launches, the flash and SSD launches by kernel path, and
+    the run."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.lm import build_model
 
-    sv = sizes["serve"]
+    sv = sizes[phase]
     argv = serve_argv(sv, device)
     cuda = device.type == "cuda"
     if cuda:
@@ -2205,7 +2246,7 @@ def phase_serve(torch, device, sizes) -> dict:
     reset_flash()
     reset_ssd()
     t0 = time.perf_counter()
-    res = serve.run(serve.parse_args(argv), log=lambda line: emit("serve_log", line=line))
+    res = serve.run(serve.parse_args(argv), log=lambda line: emit(f"{phase}_log", line=line))
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2221,12 +2262,13 @@ def phase_serve(torch, device, sizes) -> dict:
     check(len(res.prefill_s) == served, f"{served} requests served")
     check(res.logits_finite, "every logit finite")
     if cuda:
-        want = {"flash_attention": len(model._hybrid_segments()) * served, "ssd_scan": cfg.n_layers * served}
-        check(launches == want, f"kernel launches on the serve path {launches} == {want}")
+        attn = len(model._hybrid_segments()) if cfg.family == "hybrid" else 0  # the shared block's calls
+        want = {"flash_attention": attn * served, "ssd_scan": cfg.n_layers * served}
+        check(launches == want, f"kernel launches on the {phase} path {launches} == {want}")
         check(flash_paths == hopper_only(want["flash_attention"]),
-              f"every flash launch of the serve path on the Hopper kernel: {flash_paths}")
+              f"every flash launch of the {phase} path on the Hopper kernel: {flash_paths}")
         check(ssd_paths == hopper_only(want["ssd_scan"], "ssd_scan"),
-              f"every ssd_scan launch of the serve path on the Hopper kernel: {ssd_paths}")
+              f"every ssd_scan launch of the {phase} path on the Hopper kernel: {ssd_paths}")
 
     tokens = torch.as_tensor(res.requests[0], dtype=torch.int32, device=device)[None, :]
     errors: dict = {}
@@ -2244,7 +2286,7 @@ def phase_serve(torch, device, sizes) -> dict:
 
     prefill_ms = [t * 1e3 for t in res.prefill_s]
     decode_ms_tok = [t * 1e3 / (steps - 1) for t in res.decode_s]
-    emit("serve", arch=cfg.arch_id, params=cfg.param_count(), dtype=str(cfg.param_dtype),
+    emit(phase, arch=cfg.arch_id, params=cfg.param_count(), dtype=str(cfg.param_dtype),
          requests=served, prompt=sv["prompt"], steps=steps, wall_s=wall,
          prefill_ms=dict(first=prefill_ms[0], median=float(np.median(prefill_ms[1:] or prefill_ms))),
          decode_ms_per_token=dict(first=decode_ms_tok[0], median=float(np.median(decode_ms_tok[1:] or decode_ms_tok))),
@@ -2255,6 +2297,17 @@ def phase_serve(torch, device, sizes) -> dict:
          final_policy=res.stats[-1].policy, controller_policy=res.server.controller.current_policy().label(),
          kernel_calls_vs_plain_max_abs_err=errors, bfloat16=bf16, float32=f32)
     return launches, flash_paths, ssd_paths, res
+
+
+def phase_serve_ssm(torch, device, sizes) -> tuple:
+    """Phase `serve` on `sizes["serve_ssm"]`: the pure SSM, mamba2-2.7b at
+    full width and depth, serving 4096-token prompts (32 chunks of 128 a
+    layer, on the Hopper ssd_scan's group walk), its model freed after.
+    Returns its ssd_scan launches, in all and by kernel path."""
+    launches, _, ssd_paths, res = phase_serve(torch, device, sizes, "serve_ssm")
+    del res
+    free_device(torch, device)
+    return {"ssd_scan": launches["ssd_scan"]}, ssd_paths
 
 
 @contextlib.contextmanager
@@ -3247,6 +3300,13 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     kw_read("fleet_serve")
     flash_paths["fleet_serve"] = dict(ops.flash_attention.launches_by_path)
     ssd_paths["fleet_serve"] = dict(ops.ssd_scan.launches_by_path)
+    # one model on the card at a time: phase serve's goes unless --profile
+    # profiles it below
+    if not profile:
+        served = None
+    free_device(torch, device)
+    KW_PHASE[0] = "serve_ssm"
+    paths["serve_ssm"], ssd_paths["serve_ssm"] = phase_serve_ssm(torch, device, sizes)
     # every main-path kw_queue launch, by phase and shape: the records agree
     # with the counters, and on the card every launch took path "tma"
     shapes = kw_queue_shapes(KW_LAUNCHES)

@@ -18,14 +18,17 @@
 // reference's ssd_chunked split them.  Three kernels; the wrapper's
 // `kernel_path` picks one.
 //
-// bfloat16, chunk 128, P and N 64 or 128, at most 8 chunks, 16-byte aligned
-// x, B and C (every main-path call; "wgmma_tma"): one launch on Hopper.
-// - Work.  One block of two warpgroups per (chunk, head, batch row); the
-//   blocks of a (batch row, head) form a thread block cluster along the
-//   chunks (cudaLaunchKernelEx with a cluster dimension; the launch checks
-//   with cudaOccupancyMaxActiveClusters that one fits and fails otherwise).
-//   At P = N = 64 two blocks share an SM (83 KB of shared memory, 128
-//   registers a thread).
+// bfloat16, chunk 128, P and N 64 or 128, 16-byte aligned x, B and C, any
+// number of chunks (every main-path call; "wgmma_tma"): one launch on
+// Hopper.
+// - Work.  The blocks of a (batch row, head), K = min(nc, 8) of two
+//   warpgroups each, form a thread block cluster along the chunks
+//   (cudaLaunchKernelEx with a cluster dimension; the launch checks with
+//   cudaOccupancyMaxActiveClusters that one fits and fails otherwise).
+//   The cluster walks the chunks in groups of K, one group after another:
+//   the block of rank r takes chunks r, r + K, r + 2K, ...  Below, "the
+//   chunk" is a block's chunk of the current group.  At P = N = 64 two
+//   blocks share an SM (85 KB of shared memory, 128 registers a thread).
 // - Loads.  Thread 0 loads the chunk's x (Bt, S, H, P) and its group's B
 //   and C (Bt, S, G, N) by TMA, 4-D maps read by strides in 128-row boxes
 //   of 64 columns with the 128-byte swizzle, rows past S as zeros, onto
@@ -44,20 +47,27 @@
 //   (float32) and decay in shared memory and arrives at the cluster
 //   barrier.  Warpgroup 0 then runs the recurrence h_{c+1} = decay_c·h_c +
 //   state_c in float32 and the plain version's order, the cluster's blocks
-//   splitting the elements: each reads its elements' states from every
-//   block over distributed shared memory (mapa, ld.shared::cluster) and
-//   stores each block's h_c, bf16 hi and lo in the K-major layout C·hᵀ
-//   reads, into that block's shared memory by st.async, whose bytes
-//   complete on the receiving block's own mbarrier; the owner of an element
-//   writes its h_final.  Warpgroup 1 runs its intra-chunk product
-//   meanwhile, and warpgroup 0's overlaps its recurrence.  A second cluster
-//   barrier, waited for at the end, keeps every state in place until all
-//   blocks have read it.
+//   splitting the elements, each block owning the same elements in every
+//   group: each reads its elements' states from every block of the group
+//   over distributed shared memory (mapa, ld.shared::cluster) and stores
+//   each block's h_c, bf16 hi and lo in the K-major layout C·hᵀ reads, into
+//   that block's shared memory by st.async, whose bytes complete on the
+//   receiving block's own mbarrier.  The owner keeps its elements' float32
+//   h from the group's last chunk in its own shared memory, starts the
+//   next group's recurrence from it, and writes h_final after the last
+//   group.  Warpgroup 1 runs its intra-chunk product meanwhile, and
+//   warpgroup 0's overlaps its recurrence.  A second cluster barrier,
+//   waited for at the end of a group, keeps every state and decay in place
+//   until all blocks have read them, before the next group's loads and
+//   weighted x overwrite them; the two mbarriers' phases flip once a group.
+//   Where nc is not a multiple of K, the last group's later blocks run
+//   chunks past the end, all zeros (TMA's fill, dt = 0): state 0, decay 1,
+//   so h passes them unchanged and exactly, and they store nothing.
 // - y = Y + exp(cs)·Z + D·x goes from the accumulators to device memory,
 //   4 bytes a store (a TMA store of the tile, staged over x, was slower).
 //
 // bfloat16 otherwise ("mma_sync": P = 16, N = 8, chunks other than 128,
-// more than 8 chunks, unaligned views): chunk-parallel, two launches.
+// unaligned views): chunk-parallel, two launches.
 //   1. ssd_chunk_state_kernel, one block per (chunk, head, batch row):
 //      cs by a warp-shuffle scan, the chunk's own state
 //      Σ_j exp(cs_last - cs_j)·dt_j·x_jᵀ B_j (a (P x Q)·(Q x N) product) and
@@ -84,12 +94,14 @@
 // about 18 MB, 5.5 µs at 3.35 TB/s; 2.16 GFLOP, 2.2 µs at the bf16 rate.
 // On an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md) the Hopper kernel takes
 // about 0.033 ms there, against 0.073 ms for the two mma.sync launches
-// (0.464 ms for the float32 kernel), and 0.061 against 0.199 ms at
-// mamba2-2.7b's (1, 1024, 80, 64), N = 128.  Neither bytes nor operations
-// set it: a block's chain of dependent steps (loads, products, the cluster
-// barrier, the recurrence over distributed shared memory, the stores), 6-9
-// µs, and the waves: 30 clusters of 8 blocks fit on the card at once, so
-// the serve shape's 64 clusters take 3 (tools/ssd_trace.py).
+// (0.464 ms for the float32 kernel), and 0.062 against 0.201 ms at
+// mamba2-2.7b's (1, 1024, 80, 64), N = 128; at its 4096 tokens (32 chunks,
+// 4 groups) 0.224 against 1.110 ms, whose output kernel reads every
+// earlier chunk's state.  Neither bytes nor operations set it: a block's
+// chain of dependent steps (loads, products, the cluster barrier, the
+// recurrence over distributed shared memory, the stores), 6-9 µs a group,
+// and the waves: 30 clusters of 8 blocks fit on the card at once (15 at N
+// = 128), so the serve shape's 64 clusters take 3 (tools/ssd_trace.py).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -704,7 +716,7 @@ int launch_chunked(const bf16* x, const float* dt, const float* A, const bf16* B
 
 constexpr int kHopQ = 128;        // chunk rows (the kernel takes chunk 128 only)
 constexpr int kHopThreads = 256;  // two warpgroups
-constexpr int kMaxCluster = 8;    // chunks a cluster holds (the portable cluster size)
+constexpr int kMaxCluster = 8;    // blocks a cluster holds (the portable cluster size)
 constexpr int kRegion = kHopQ * 128;  // a 64-column region of a Q-row tile: Q rows of 128 bytes
 
 // The launch's own error code for a cluster the card cannot schedule (no
@@ -718,8 +730,10 @@ constexpr int kErrCluster = 30000;
 // 128 bytes), as bf16 high then low parts, written there by the
 // cluster's blocks.  The weighted x's high and low parts (the layout of x)
 // later hold the chunk's own float32 state (P x N, pairs swizzled), which
-// the cluster's blocks read.  Then dt, cs, w, k = log2(dt) - cs·log2(e),
-// the scan's warp sums, the chunk's decay and two mbarriers: x, B and C
+// the cluster's blocks read.  Then the float32 h that this block's
+// threads carry from one group of chunks to the next (the eighth of the
+// P·N elements the block owns), dt, cs, w, k = log2(dt) - cs·log2(e), the
+// scan's warp sums, the chunk's decay and two mbarriers: x, B and C
 // landed; h landed.
 template <int P, int N>
 struct HopSsd {
@@ -728,11 +742,13 @@ struct HopSsd {
   static constexpr uint32_t kH = 2 * P * N * 2;
   static constexpr uint32_t kBH = kBC > kH ? kBC : kH;
   static constexpr uint32_t kWX = 2 * kX;
+  static constexpr uint32_t kCarry = P * N * 4 / kMaxCluster;
   static constexpr uint32_t kXOff = 0;
   static constexpr uint32_t kCOff = kXOff + kX;
   static constexpr uint32_t kBOff = kCOff + kBC;
   static constexpr uint32_t kWXOff = kBOff + kBH;
-  static constexpr uint32_t kVecOff = kWXOff + kWX;
+  static constexpr uint32_t kCarryOff = kWXOff + kWX;
+  static constexpr uint32_t kVecOff = kCarryOff + kCarry;
   static constexpr uint32_t kBarOff = kVecOff + (4 * kHopQ + 8 + 2) * 4;
   static constexpr size_t kSmem = kBarOff + 16 + 1024;  // 1 KB to align the base
   static constexpr uint32_t kTxBytes = kX + 2 * kBC;
@@ -770,15 +786,18 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t&
 using hopper::exp2_ftz;
 using hopper::kLog2e;
 
-// One warpgroup's work: rows 64·wg .. 64·wg + 63 of the chunk against keys
-// 0 .. KEYS - 1 (KEYS = 64 for rows 0-63, which need no later key; 128
-// for rows 64-127), the state's rows 64·wg' .. (P = 128: both groups; P =
-// 64: the lighter group 0 alone), the cluster's exchange, and the outputs.
+// One warpgroup's work on one group of chunks: rows 64·wg .. 64·wg + 63
+// of chunk c against keys 0 .. KEYS - 1 (KEYS = 64 for rows 0-63, which
+// need no later key; 128 for rows 64-127), the state's rows 64·wg' .. (P =
+// 128: both warpgroups; P = 64: the lighter warpgroup 0 alone), the cluster's
+// exchange over the group's chunks, from chunk `first` on, and the
+// outputs.  `h_parity` is the phase of the h barrier this chunk waits
+// for; `last` marks the last group, after which the owners write h_final.
 template <int P, int N, int KEYS>
 __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t base, int tid, int c,
-                                                 int nc, int b, int h, int S, int H, int valid,
-                                                 float d_h, bf16* __restrict__ y,
-                                                 float* __restrict__ h_final) {
+                                                 int first, bool last, uint32_t h_parity, int b,
+                                                 int h, int S, int H, int valid, float d_h,
+                                                 bf16* __restrict__ y, float* __restrict__ h_final) {
   using L = HopSsd<P, N>;
   constexpr bool kState = P == 128 || KEYS == 64;
   constexpr int wg = KEYS == 64 ? 0 : 1;
@@ -787,6 +806,7 @@ __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t bas
   const float* cs_s = dt_s + kHopQ;
   const float* k_s = cs_s + 2 * kHopQ;  // log2(dt_j) - cs_j·log2(e)
   float* decay_s = const_cast<float*>(k_s) + kHopQ + 8;
+  float4* carry_s = reinterpret_cast<float4*>(sm + L::kCarryOff);
   const int wt = tid & 127, warp = wt >> 5, lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
   const int row0 = 64 * wg + 16 * warp + g4;  // this thread's rows: row0, row0 + 8
   const uint32_t x_s = base + L::kXOff, c_s = base + L::kCOff, b_s = base + L::kBOff;
@@ -844,17 +864,23 @@ __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t bas
   hopper::cluster_arrive();
 
   // The recurrence h_{c+1} = decay_c·h_c + state_c, in float32 and in the
-  // plain version's order, element-wise, by group 0 (whose intra-chunk work
-  // is the lighter) while group 1 runs its intra-chunk product: the
-  // cluster's blocks split the P·N elements in groups of 4, each reading its
-  // elements' states from every block of the cluster and storing each
+  // plain version's order, element-wise, by warpgroup 0 (whose intra-chunk
+  // work is the lighter) while warpgroup 1 runs its intra-chunk product:
+  // the cluster's blocks split the P·N elements in fours, each block owning
+  // the same elements in every group of chunks.  The owner starts from the
+  // h it carried out of the previous group of chunks (zero in the first),
+  // reads its elements' states from the cluster's blocks, stores each
   // block's h_c, as bf16 hi and lo in its K-major layout, into that block's
   // shared memory (st.async, whose bytes complete on that block's h
-  // barrier); h_nc is h_final.  Group 0 issues its first group's loads,
-  // scales its S and issues its Y while they are in flight, then finishes
-  // the recurrence while Y runs.  Both groups then arrive at the second
-  // cluster barrier (relaxed: it orders reads), whose wait, at the end,
-  // keeps this block's state in place until every block is done with it.
+  // barrier), and keeps h after the group's last chunk: in its carry, or,
+  // after the last group, as h_final.  Warpgroup 0 issues the loads of its
+  // first four elements, scales its S and issues its Y while they are in
+  // flight, then finishes the recurrence while Y runs.  Both warpgroups
+  // then arrive at the second cluster barrier (relaxed: it orders reads),
+  // whose wait, at the end, keeps this block's state and decay in place
+  // until every block is done with them, before the next group of chunks
+  // overwrites them.
+  const int K = static_cast<int>(gridDim.x);  // blocks in the cluster
   const uint32_t rank = hopper::cluster_ctarank();
   float dec[kMaxCluster];
   float4 sv[kMaxCluster];
@@ -863,16 +889,16 @@ __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t bas
     const uint32_t so = state_pair<N>(p, n / 2) * 8;  // pairs n/2 and n/2 + 1: 16 bytes
 #pragma unroll
     for (int cc = 0; cc < kMaxCluster; ++cc)
-      if (cc < nc) sv[cc] = hopper::ld_cluster_f32x4(hopper::mapa(wx_s + so, cc));
+      if (cc < K) sv[cc] = hopper::ld_cluster_f32x4(hopper::mapa(wx_s + so, cc));
   };
-  auto finish_states = [&](int e4) {
+  auto finish_states = [&](int e4, int own) {
     const int p = e4 / (N / 4), n = 4 * (e4 % (N / 4));
     const uint32_t ho = sw128(p, n, P);
-    float4 hv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 hv = first > 0 ? carry_s[own * 128 + wt] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
     for (int cc = 0; cc < kMaxCluster; ++cc) {
-      if (cc >= nc) break;
-      if (cc > 0) {
+      if (cc >= K) break;
+      if (first + cc > 0) {
         uint32_t hi[2], lo[2];
         split2(hv.x, hv.y, hi[0], lo[0]);
         split2(hv.z, hv.w, hi[1], lo[1]);
@@ -885,14 +911,18 @@ __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t bas
       hv.z = hv.z * dec[cc] + sv[cc].z;
       hv.w = hv.w * dec[cc] + sv[cc].w;
     }
-    *reinterpret_cast<float4*>(h_final + ((static_cast<size_t>(b) * H + h) * P + p) * N + n) = hv;
+    if (last) {
+      *reinterpret_cast<float4*>(h_final + ((static_cast<size_t>(b) * H + h) * P + p) * N + n) = hv;
+    } else {
+      carry_s[own * 128 + wt] = hv;
+    }
   };
   const int e4_first = static_cast<int>(rank) * 128 + wt;
   if constexpr (wg == 0) {
     hopper::cluster_wait();
 #pragma unroll
     for (int cc = 0; cc < kMaxCluster; ++cc)
-      dec[cc] = cc < nc ? hopper::ld_cluster_f32(hopper::mapa(hopper::smem_addr(decay_s), cc)) : 0.0f;
+      dec[cc] = cc < K ? hopper::ld_cluster_f32(hopper::mapa(hopper::smem_addr(decay_s), cc)) : 0.0f;
     if (e4_first < P * N / 4) load_states(e4_first);
   }
 
@@ -937,10 +967,11 @@ __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t bas
   }
   hopper::wgmma_commit();
   if constexpr (wg == 0) {
-    if (e4_first < P * N / 4) finish_states(e4_first);
-    for (int e4 = e4_first + nc * 128; e4 < P * N / 4; e4 += nc * 128) {
+    if (e4_first < P * N / 4) finish_states(e4_first, 0);
+    int own = 1;
+    for (int e4 = e4_first + K * 128; e4 < P * N / 4; e4 += K * 128, ++own) {
       load_states(e4);
-      finish_states(e4);
+      finish_states(e4, own);
     }
   }
   hopper::wgmma_wait<0>();
@@ -956,7 +987,7 @@ __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t bas
 #pragma unroll
   for (int i = 0; i < P / 2; ++i) zacc[i] = 0.0f;
   if (c > 0) {
-    hopper::mbar_wait(h_bar, 0);
+    hopper::mbar_wait(h_bar, h_parity);
     hopper::fence_proxy_async_cta();
     hopper::fence_regs(zacc);
     hopper::wgmma_fence();
@@ -991,12 +1022,25 @@ __device__ __forceinline__ void ssd_hopper_group(unsigned char* sm, uint32_t bas
   hopper::cluster_wait();
 }
 
-// One block per (chunk, head, batch row); the blocks of a (batch row, head)
-// form one cluster along the chunks (nc <= 8).  256 threads: thread 0
-// issues the TMA loads of x, B and C, all threads build the weighted x,
-// then each warpgroup runs `ssd_hopper_group`.  Two blocks share an SM at
-// P = N = 64 (83 KB of shared memory, 128 registers a thread).
-template <int P, int N>
+// One block per (cluster rank, head, batch row); the blocks of a (batch
+// row, head) form one cluster of K = min(nc, 8) along the chunks, and the
+// block of rank r takes chunks r, r + K, r + 2K, ...: the cluster walks
+// the chunks in groups of K, one group after another, and its blocks carry
+// the state across groups (`ssd_hopper_group`).  Where nc is not a
+// multiple of K, the last group's later blocks take chunks past the end:
+// TMA fills their x, B and C with zeros and dt is 0 there, so their state
+// is 0 and their decay exp(0) = 1, which leaves h as it was (h·1 + 0 is
+// exact), and they store no y.  For each of its chunks, 256 threads:
+// thread 0 issues the TMA loads of x, B and C, all threads build the
+// weighted x, then each warpgroup runs `ssd_hopper_group`; the next
+// group's dt is loaded under the group's work.  kWalk = false (nc <= 8)
+// fixes one group at compile time: the walk's loop and carry fold away,
+// and with them registers that the one-group calls, every main-path call
+// at 1024 tokens, would otherwise pay (tools/ssd_trace.py --ab: at
+// zamba2's serve shape the walk spills 192 bytes a thread and takes
+// 0.0365 against 0.0332 ms on an NVIDIA H100 80GB HBM3 at 700 W).  Two blocks share an SM
+// at P = N = 64 (85 KB of shared memory, 128 registers a thread).
+template <int P, int N, bool kWalk>
 __global__ void __launch_bounds__(kHopThreads, P == 64 && N == 64 ? 2 : 1)
 ssd_scan_hopper_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
                        const __grid_constant__ CUtensorMap tm_c, const float* __restrict__ dt,
@@ -1014,13 +1058,18 @@ ssd_scan_hopper_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_co
   float* sums = k_s + kHopQ;
   const uint32_t bar = base + L::kBarOff;
   const int tid = threadIdx.x;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.x;
+  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int K = gridDim.x;  // the cluster's size
+  const int nc = (S + kHopQ - 1) / kHopQ;
+  const int n_groups = kWalk ? (nc + K - 1) / K : 1;
   const int g = h / (H / G);
-  const int s0 = c * kHopQ;
-  const int valid = min(kHopQ, S - s0);
+  // dt of row `tid` of chunk c (0 past S)
+  auto load_dt = [&](int c) -> float {
+    const int s = c * kHopQ + tid;
+    return tid < kHopQ && s < S ? dt[(static_cast<size_t>(b) * S + s) * H + h] : 0.0f;
+  };
   // the global loads first, their latency under the barriers' set-up
-  const float dt_t = tid < valid ? dt[(static_cast<size_t>(b) * S + s0 + tid) * H + h] : 0.0f;
+  float dt_t = load_dt(rank);
   const float a_h = A[h], d_h = Dv[h];
 
   if (tid == 0) {
@@ -1031,72 +1080,86 @@ ssd_scan_hopper_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_co
     hopper::mbar_init(bar + 8, 1);
     hopper::mbar_init_fence();
   }
-  __syncthreads();
-  // h, from the cluster's blocks: P·N bf16 high and low parts
-  if (tid == 0 && c > 0) hopper::mbar_expect_tx(bar + 8, P * N * 4);
-  if (tid == 0) {
-    // rows past S come back as zeros: x = B = C = 0 there
-    hopper::mbar_expect_tx(bar, L::kTxBytes);
-#pragma unroll
-    for (int r = 0; r < P / 64; ++r)
-      hopper::tma_load_4d(base + L::kXOff + r * kRegion, &tm_x, bar, 64 * r, h, s0, b);
-#pragma unroll
-    for (int r = 0; r < N / 64; ++r) {
-      hopper::tma_load_4d(base + L::kBOff + r * kRegion, &tm_b, bar, 64 * r, g, s0, b);
-      hopper::tma_load_4d(base + L::kCOff + r * kRegion, &tm_c, bar, 64 * r, g, s0, b);
-    }
-  }
-  if (tid < kHopQ) dt_s[tid] = dt_t;
-  chunk_cumsum(dt_s, cs_s, sums, a_h, kHopQ, tid);
-  if (tid < kHopQ) {
-    w_s[tid] = expf(cs_s[kHopQ - 1] - cs_s[tid]) * dt_s[tid];
-  } else {
-    const int j = tid - kHopQ;  // log2(0) = -inf: a padded key's factor is 0
-    k_s[j] = __log2f(dt_s[j]) - cs_s[j] * kLog2e;
-  }
-  __syncthreads();
-  hopper::mbar_wait(bar, 0);
-
-  // the weighted x w_j·x_j, split into bf16 hi + lo, in x's layout
-#pragma unroll
-  for (int k = tid; k < kHopQ * P / 8; k += kHopThreads) {
-    const uint32_t off = k * 16;
-    const float wj = w_s[(off % kRegion) >> 7];
-    const uint4 v = *reinterpret_cast<const uint4*>(sm + L::kXOff + off);
-    const uint32_t in[4] = {v.x, v.y, v.z, v.w};
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&in[q]));
-      split2(wj * xf.x, wj * xf.y, hi[q], lo[q]);
-    }
-    *reinterpret_cast<uint4*>(sm + L::kWXOff + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(sm + L::kWXOff + L::kX + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-  hopper::fence_proxy_async_cta();
-  __syncthreads();
-
   // warp-uniform, so that each group's branch is taken by whole warps
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
-  if (wg == 0) {
-    ssd_hopper_group<P, N, 64>(sm, base, tid, c, nc, b, h, S, H, valid, d_h, y, h_final);
-  } else {
-    ssd_hopper_group<P, N, 128>(sm, base, tid, c, nc, b, h, S, H, valid, d_h, y, h_final);
+  for (int grp = 0; grp < n_groups; ++grp) {
+    const int first = grp * K;
+    const int c = first + rank;
+    const int s0 = c * kHopQ;
+    const int valid = min(kHopQ, S - s0);  // at most 0 past the end
+    // the barriers are initialised, and every thread is done with the
+    // previous group's x, C, dt and cs (its stores of y read them after
+    // the cluster barrier's arrival)
+    __syncthreads();
+    if (tid == 0) {
+      // h, from the cluster's blocks: P·N bf16 high and low parts
+      if (c > 0) hopper::mbar_expect_tx(bar + 8, P * N * 4);
+      // the previous group's generic reads of x and C before TMA rewrites them
+      if (grp > 0) hopper::fence_proxy_async_cta();
+      // rows past S come back as zeros: x = B = C = 0 there
+      hopper::mbar_expect_tx(bar, L::kTxBytes);
+#pragma unroll
+      for (int r = 0; r < P / 64; ++r)
+        hopper::tma_load_4d(base + L::kXOff + r * kRegion, &tm_x, bar, 64 * r, h, s0, b);
+#pragma unroll
+      for (int r = 0; r < N / 64; ++r) {
+        hopper::tma_load_4d(base + L::kBOff + r * kRegion, &tm_b, bar, 64 * r, g, s0, b);
+        hopper::tma_load_4d(base + L::kCOff + r * kRegion, &tm_c, bar, 64 * r, g, s0, b);
+      }
+    }
+    if (tid < kHopQ) dt_s[tid] = dt_t;
+    if (grp + 1 < n_groups) dt_t = load_dt(c + K);
+    chunk_cumsum(dt_s, cs_s, sums, a_h, kHopQ, tid);
+    if (tid < kHopQ) {
+      w_s[tid] = expf(cs_s[kHopQ - 1] - cs_s[tid]) * dt_s[tid];
+    } else {
+      const int j = tid - kHopQ;  // log2(0) = -inf: a padded key's factor is 0
+      k_s[j] = __log2f(dt_s[j]) - cs_s[j] * kLog2e;
+    }
+    __syncthreads();
+    hopper::mbar_wait(bar, grp & 1);
+
+    // the weighted x w_j·x_j, split into bf16 hi + lo, in x's layout
+#pragma unroll
+    for (int k = tid; k < kHopQ * P / 8; k += kHopThreads) {
+      const uint32_t off = k * 16;
+      const float wj = w_s[(off % kRegion) >> 7];
+      const uint4 v = *reinterpret_cast<const uint4*>(sm + L::kXOff + off);
+      const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&in[q]));
+        split2(wj * xf.x, wj * xf.y, hi[q], lo[q]);
+      }
+      *reinterpret_cast<uint4*>(sm + L::kWXOff + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(sm + L::kWXOff + L::kX + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    hopper::fence_proxy_async_cta();
+    __syncthreads();
+
+    const bool last = grp == n_groups - 1;
+    const uint32_t h_parity = (c > 0 ? grp - (rank == 0) : 0) & 1;  // h phases waited for before this one
+    if (wg == 0) {
+      ssd_hopper_group<P, N, 64>(sm, base, tid, c, first, last, h_parity, b, h, S, H, valid, d_h, y, h_final);
+    } else {
+      ssd_hopper_group<P, N, 128>(sm, base, tid, c, first, last, h_parity, b, h, S, H, valid, d_h, y, h_final);
+    }
   }
 }
 
-// The launch of the Hopper kernel at widths (P, N): a grid of (nc, H, Bt)
-// blocks in clusters of nc along the chunks.
+// The launch of the Hopper kernel at widths (P, N): a grid of (K, H, Bt)
+// blocks in clusters of K = min(nc, 8) along the chunks.
 struct HopperLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  HopperLaunch(size_t smem, int nc, int H, int Bt, cudaStream_t stream) {
-    cfg.gridDim = dim3(nc, H, Bt);
+  HopperLaunch(size_t smem, int K, int H, int Bt, cudaStream_t stream) {
+    cfg.gridDim = dim3(K, H, Bt);
     cfg.blockDim = dim3(kHopThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = nc;
+    attr[0].val.clusterDim.x = K;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -1104,16 +1167,16 @@ struct HopperLaunch {
   }
 };
 
-// Clusters of nc blocks of the Hopper kernel the card holds at once, after
+// Clusters of K blocks of the Hopper kernel the card holds at once, after
 // setting its shared-memory attribute, or minus a CUDA error code.
-template <int P, int N>
-int hopper_clusters(int nc) {
+template <int P, int N, bool kWalk>
+int hopper_clusters(int K) {
   using L = HopSsd<P, N>;
-  auto kernel = ssd_scan_hopper_kernel<P, N>;
+  auto kernel = ssd_scan_hopper_kernel<P, N, kWalk>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::kSmem));
   if (e != cudaSuccess) return -static_cast<int>(e);
-  HopperLaunch launch(L::kSmem, nc, 1, 1, nullptr);
+  HopperLaunch launch(L::kSmem, K, 1, 1, nullptr);
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
   return e == cudaSuccess ? clusters : -static_cast<int>(e);
@@ -1127,28 +1190,31 @@ int launch_hopper(const bf16* x, const float* dt, const float* A, const bf16* B,
                   cudaStream_t stream) {
   using L = HopSsd<P, N>;
   const int nc = (S + kHopQ - 1) / kHopQ;
-  if (nc > kMaxCluster || !aligned16(x) || !aligned16(B) || !aligned16(C))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int K = nc < kMaxCluster ? nc : kMaxCluster;
+  const bool walk = nc > K;
+  if (!aligned16(x) || !aligned16(B) || !aligned16(C)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_x, tm_b, tm_c;
   int err = hopper::encode_map(&tm_x, x, Bt, S, H, P, 64, kHopQ, 128);
   if (err == 0) err = hopper::encode_map(&tm_b, B, Bt, S, G, N, 64, kHopQ, 128);
   if (err == 0) err = hopper::encode_map(&tm_c, C, Bt, S, G, N, 64, kHopQ, 128);
   if (err != 0) return err;
-  // the cluster check, once a (device, cluster size): at least one cluster
-  // of nc blocks fits on the card
-  static bool checked[kMaxDevices][kMaxCluster + 1] = {};
+  // the cluster check, once a (device, cluster size, kernel): at least one
+  // cluster of K blocks fits on the card
+  static bool checked[kMaxDevices][kMaxCluster + 1][2] = {};
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (device >= kMaxDevices || !checked[device][nc]) {
-    const int clusters = hopper_clusters<P, N>(nc);
+  if (device >= kMaxDevices || !checked[device][K][walk]) {
+    const int clusters = walk ? hopper_clusters<P, N, true>(K) : hopper_clusters<P, N, false>(K);
     if (clusters < 0) return -clusters;
     if (clusters < 1) return kErrCluster;
-    if (device < kMaxDevices) checked[device][nc] = true;
+    if (device < kMaxDevices) checked[device][K][walk] = true;
   }
-  HopperLaunch launch(L::kSmem, nc, H, Bt, stream);
-  e = cudaLaunchKernelEx(&launch.cfg, ssd_scan_hopper_kernel<P, N>, tm_x, tm_b, tm_c, dt, A, D, y,
-                         h_final, S, H, G);
+  HopperLaunch launch(L::kSmem, K, H, Bt, stream);
+  e = walk ? cudaLaunchKernelEx(&launch.cfg, ssd_scan_hopper_kernel<P, N, true>, tm_x, tm_b, tm_c, dt, A, D, y,
+                                h_final, S, H, G)
+           : cudaLaunchKernelEx(&launch.cfg, ssd_scan_hopper_kernel<P, N, false>, tm_x, tm_b, tm_c, dt, A, D, y,
+                                h_final, S, H, G);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1212,8 +1278,8 @@ int dispatch_f32(const float* x, const float* dt, const float* A, const float* B
 
 // The kernels, as the wrapper's `kernel_path` names them: 0 "cuda_core"
 // (float32), 1 "mma_sync" (bf16, two launches), 2 "wgmma_tma" (bf16, one
-// launch of clusters; chunk 128, P and N 64 or 128, at most 8 chunks,
-// 16-byte aligned x, B and C).
+// launch of clusters of up to 8 blocks that walk any number of chunks;
+// chunk 128, P and N 64 or 128, 16-byte aligned x, B and C).
 enum Path { kCudaCore = 0, kMmaSync = 1, kWgmmaTma = 2 };
 
 }  // namespace
@@ -1236,17 +1302,20 @@ extern "C" long long ssd_scan_smem_bytes(int Q, int P, int N, int path) {
   return 0;
 }
 
-// Clusters of `nc` blocks of the wgmma_tma kernel at widths (P, N) that the
-// card holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA
-// error code.
+// Clusters of the wgmma_tma kernel at widths (P, N) for `nc` chunks (each
+// of min(nc, 8) blocks) that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
 extern "C" int ssd_scan_hopper_clusters(int P, int N, int nc, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  if (nc < 1 || nc > kMaxCluster) return -static_cast<int>(cudaErrorInvalidValue);
-  if (P == 64 && N == 64) return hopper_clusters<64, 64>(nc);
-  if (P == 64 && N == 128) return hopper_clusters<64, 128>(nc);
-  if (P == 128 && N == 64) return hopper_clusters<128, 64>(nc);
-  if (P == 128 && N == 128) return hopper_clusters<128, 128>(nc);
+  if (nc < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  const int K = nc < kMaxCluster ? nc : kMaxCluster;
+#define SSD_CLUSTERS(p, n) (nc > K ? hopper_clusters<p, n, true>(K) : hopper_clusters<p, n, false>(K))
+  if (P == 64 && N == 64) return SSD_CLUSTERS(64, 64);
+  if (P == 64 && N == 128) return SSD_CLUSTERS(64, 128);
+  if (P == 128 && N == 64) return SSD_CLUSTERS(128, 64);
+  if (P == 128 && N == 128) return SSD_CLUSTERS(128, 128);
+#undef SSD_CLUSTERS
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 

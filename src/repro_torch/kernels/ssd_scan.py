@@ -13,18 +13,20 @@ and mask the ragged last chunk, where the TPU wrapper made per-head copies
 and padded.  `kernel_path` picks one of three, and
 `ssd_scan.launches_by_path` counts each:
 
-- "wgmma_tma" (bfloat16, chunk 128, P and N 64 or 128, at most 8 chunks,
-  x, B and C 16-byte aligned: every main-path call): one CUDA launch of a
-  Hopper kernel.  The blocks of a (batch row, head), one a chunk, form a
-  thread block cluster; each loads its chunk's x, B and C by TMA, computes
-  its chunk's own state and C·Bᵀ on `wgmma`, then exchanges the states
-  over distributed shared memory: the chunk states never reach device
-  memory, and no scratch tensor is allocated.
+- "wgmma_tma" (bfloat16, chunk 128, P and N 64 or 128, x, B and C 16-byte
+  aligned, any number of chunks: every main-path call): one CUDA launch of
+  a Hopper kernel.  The blocks of a (batch row, head), min(chunks, 8) of
+  them, form a thread block cluster that walks the chunks in groups of
+  that many, a chunk a block; in each group every block loads its chunk's
+  x, B and C by TMA, computes its chunk's own state and C·Bᵀ on `wgmma`,
+  then the blocks exchange the states over distributed shared memory, and
+  each carries the float32 state of the elements it owns into the next
+  group: the chunk states never reach device memory, and no scratch
+  tensor is allocated.
 - "mma_sync" (bfloat16 otherwise: P = 16, N = 8, chunks other than 128,
-  more than 8 chunks, unaligned views): two CUDA launches, the chunks'
-  own states into a float32 scratch tensor that this wrapper allocates,
-  then each chunk's outputs after the short recurrence over the states
-  before it, on `mma.sync`.
+  unaligned views): two CUDA launches, the chunks' own states into a
+  float32 scratch tensor that this wrapper allocates, then each chunk's
+  outputs after the recurrence over the states before it, on `mma.sync`.
 - "cuda_core" (float32): one launch of a block per (batch row, head) that
   walks its chunks in order on the CUDA cores.
 
@@ -55,25 +57,23 @@ _DTYPES = (torch.float32, torch.bfloat16)
 PATHS = {"cuda_core": 0, "mma_sync": 1, "wgmma_tma": 2}
 #: CUDA kernel launches per call of the wrapper, by kernel path
 CUDA_LAUNCHES = {"cuda_core": 1, "mma_sync": 2, "wgmma_tma": 1}
-#: P and N, the chunk, and the most chunks (blocks of one cluster) the
-#: Hopper kernel takes
+#: P and N, and the chunk, the Hopper kernel takes
 WGMMA_WIDTHS = (64, 128)
 WGMMA_CHUNK = 128
-WGMMA_MAX_CHUNKS = 8
 
 
 def kernel_path(P: int, N: int, n_chunks: int, dtype: torch.dtype, aligned: bool, chunk: int = 128) -> str:
     """The kernel that takes a call: "cuda_core" for float32; for bfloat16,
     "wgmma_tma" where P and N are in `WGMMA_WIDTHS`, the chunk is
-    `WGMMA_CHUNK`, there are at most `WGMMA_MAX_CHUNKS` chunks (one cluster
-    a head) and x, B and C start on 16-byte boundaries (a TMA map cannot
-    describe another base), else "mma_sync"."""
+    `WGMMA_CHUNK` and x, B and C start on 16-byte boundaries (a TMA map
+    cannot describe another base), whatever the number of chunks, else
+    "mma_sync"."""
     if dtype == torch.float32:
         return "cuda_core"
     if dtype != torch.bfloat16:
         raise TypeError(f"ssd_scan: no kernel for {dtype}")
     hopper = (P in WGMMA_WIDTHS and N in WGMMA_WIDTHS and chunk == WGMMA_CHUNK
-              and 1 <= n_chunks <= WGMMA_MAX_CHUNKS and aligned)
+              and n_chunks >= 1 and aligned)
     return "wgmma_tma" if hopper else "mma_sync"
 
 
@@ -242,8 +242,9 @@ def launch(x, dt, A, B, C, D, chunk: int, path: str):
 
 
 def hopper_clusters(P: int, N: int, n_chunks: int, device=None) -> int:
-    """Clusters of `n_chunks` blocks of the wgmma_tma kernel the card holds
-    at once (`cudaOccupancyMaxActiveClusters`)."""
+    """Clusters of the wgmma_tma kernel for `n_chunks` chunks, each of
+    min(n_chunks, 8) blocks, that the card holds at once
+    (`cudaOccupancyMaxActiveClusters`)."""
     from .build import load_library
 
     dev = torch.device("cuda") if device is None else torch.device(device)

@@ -576,17 +576,88 @@ def test_ssd_scan_wgmma_tma_cases_on_card(Bt, S, H, P, G, N):
 
 
 def test_ssd_scan_more_chunks_than_a_cluster_holds_on_card():
-    """Ten chunks of 128: no cluster of 10 blocks, so the mma_sync kernel."""
+    """Ten chunks of 128: a cluster of 8 blocks walks them in two groups,
+    the second with two chunks, on the Hopper kernel."""
     dev = _card()
     args = _ssd_inputs(1, 1280, 4, 64, 1, 64, torch.bfloat16, dev, seed=11)
-    assert ssd.kernel_path(64, 64, 10, torch.bfloat16, True) == "mma_sync"
-    _ssd_check(args, 128, 2e-1, 5e-2, path="mma_sync")
+    assert ssd.kernel_path(64, 64, 10, torch.bfloat16, True) == "wgmma_tma"
+    _ssd_check(args, 128, 2e-1, 5e-2, path="wgmma_tma")
+
+
+# (Bt, S, H, P, G, N): the Hopper kernel's group walk, a cluster of 8
+# blocks over more chunks: 9 (whole and ragged), 16, 17 (ragged), 32 and
+# 256 (S = 32768), Bt = 2, G < H, every (P, N), and mamba2-2.7b's serve
+# shape at 4096 tokens
+SSD_GROUP_CASES = [
+    (1, 1152, 4, 64, 1, 64),
+    (1, 1100, 2, 64, 1, 64),
+    (2, 2048, 4, 64, 2, 128),
+    (1, 2100, 3, 128, 1, 64),
+    (2, 4096, 4, 128, 2, 128),
+    (1, 32768, 2, 64, 1, 128),
+    (1, 4096, 80, 64, 1, 128),
+]
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N", SSD_GROUP_CASES)
+def test_ssd_scan_hopper_kernel_walks_groups_of_chunks_on_card(Bt, S, H, P, G, N):
+    dev = _card()
+    args = _ssd_inputs(Bt, S, H, P, G, N, torch.bfloat16, dev, seed=S + P + N + Bt)
+    assert ssd.kernel_path(P, N, -(-S // 128), torch.bfloat16, True) == "wgmma_tma"
+    _ssd_check(args, 128, 2e-1, 5e-2, path="wgmma_tma")
+
+
+def _ssd_carry_inputs(Bt, S, H, P, G, N, dev, seed=0):
+    """bf16 inputs whose state outlives a chunk, as trained weights keep
+    it: dt·A sums to about -1 over 128 steps, and dt is gated by e^N(0, 1)
+    over spans of 64 steps, so most chunks decay by 0.1 to 0.8, each by its
+    own amount (`_ssd_inputs`'s decay, about e^-100 a chunk, leaves only
+    the last chunk's own state in h)."""
+    x, dt, A, B, C, D = _ssd_inputs(Bt, S, H, P, G, N, torch.bfloat16, dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    gate = torch.randn((Bt, -(-S // 64), H), generator=g, device=dev).exp()
+    return x, dt * gate.repeat_interleave(64, dim=1)[:, :S], A / 170.0, B, C, D
+
+
+# (Bt, S, H, P, G, N): the Hopper kernel with state carried across chunks:
+# one cluster of 8 (no walk), then the walk at 9, 17 (ragged), 32 and 256
+# chunks, Bt = 2, G < H, every (P, N), and mamba2-2.7b's serve shape
+SSD_CARRY_CASES = [
+    (1, 1024, 4, 64, 1, 64),
+    (1, 1152, 4, 64, 1, 64),
+    (2, 2100, 4, 64, 2, 128),
+    (1, 4096, 3, 128, 1, 64),
+    (2, 4096, 4, 128, 2, 128),
+    (1, 32768, 2, 64, 1, 128),
+    (1, 4096, 80, 64, 1, 128),
+]
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N", SSD_CARRY_CASES)
+def test_ssd_scan_hopper_kernel_carries_state_across_chunks_on_card(Bt, S, H, P, G, N):
+    """y and h_final against the plain version where the state entering
+    a chunk matters: h_final differs from the last chunk's own state by
+    more than the tolerance, so a kernel that dropped the carried history,
+    or decayed it by another chunk's decay, would fail."""
+    dev = _card()
+    args = _ssd_carry_inputs(Bt, S, H, P, G, N, dev, seed=S + P + N + Bt)
+    assert ssd.kernel_path(P, N, -(-S // 128), torch.bfloat16, True) == "wgmma_tma"
+    _, h_p = ssd_scan_plain(*args, chunk=128)
+    start = (-(-S // 128) - 1) * 128
+    _, h_last = ssd_scan_plain(*(t[:, start:] if t.dim() > 1 else t for t in args), chunk=128)
+    assert not torch.allclose(h_p, h_last, rtol=5e-2, atol=2e-1)
+    _ssd_check(args, 128, 2e-1, 5e-2, path="wgmma_tma")
 
 
 def test_ssd_scan_hopper_kernel_holds_clusters_of_eight_on_card():
+    """At least one cluster fits at every chunk count; past 8 chunks the
+    clusters stay of 8 blocks."""
     dev = _card()
     for P, N in ((64, 64), (64, 128), (128, 64), (128, 128)):
-        assert ssd.hopper_clusters(P, N, 8, dev) >= 1
+        eight = ssd.hopper_clusters(P, N, 8, dev)
+        assert eight >= 1
+        for nc in (9, 17, 32, 256):
+            assert ssd.hopper_clusters(P, N, nc, dev) == eight
 
 
 def test_ssd_scan_bf16_unaligned_serve_shape_takes_mma_sync_on_card():

@@ -665,10 +665,11 @@ def test_flash_attention_dispatch_refuses_other_dtypes_and_counts_nothing_on_cpu
 
 
 # (P, N, chunks, dtype, 16-byte aligned, chunk, kernel): the Hopper kernel
-# takes bf16 at P and N of 64 or 128, chunk 128, 1 to 8 chunks (one
-# cluster), aligned inputs; the mma_sync kernel every other bf16 call
-# (P = 16, N = 8 or 16, 9+ chunks, chunk 64, unaligned views); float32
-# takes the CUDA-core kernel whatever the shape
+# takes bf16 at P and N of 64 or 128, chunk 128 and aligned inputs,
+# whatever the number of chunks (a cluster of up to 8 walks them in
+# groups); the mma_sync kernel every other bf16 call (P = 16, N = 8 or 16,
+# chunk 64, unaligned views); float32 takes the CUDA-core kernel whatever
+# the shape
 SSD_PATHS = [
     (64, 64, 8, torch.bfloat16, True, 128, "wgmma_tma"),
     (64, 128, 8, torch.bfloat16, True, 128, "wgmma_tma"),
@@ -681,9 +682,13 @@ SSD_PATHS = [
     (16, 16, 8, torch.bfloat16, True, 128, "mma_sync"),
     (128, 16, 1, torch.bfloat16, True, 128, "mma_sync"),
     (16, 8, 4, torch.bfloat16, True, 32, "mma_sync"),
-    (64, 64, 9, torch.bfloat16, True, 128, "mma_sync"),
-    (128, 128, 9, torch.bfloat16, True, 128, "mma_sync"),
-    (64, 128, 16, torch.bfloat16, True, 128, "mma_sync"),
+    (64, 64, 9, torch.bfloat16, True, 128, "wgmma_tma"),
+    (128, 128, 9, torch.bfloat16, True, 128, "wgmma_tma"),
+    (64, 128, 16, torch.bfloat16, True, 128, "wgmma_tma"),
+    (64, 128, 32, torch.bfloat16, True, 128, "wgmma_tma"),
+    (64, 64, 256, torch.bfloat16, True, 128, "wgmma_tma"),
+    (64, 128, 32, torch.bfloat16, False, 128, "mma_sync"),
+    (64, 128, 32, torch.bfloat16, True, 64, "mma_sync"),
     (64, 64, 8, torch.bfloat16, False, 128, "mma_sync"),
     (128, 64, 1, torch.bfloat16, False, 128, "mma_sync"),
     (16, 64, 9, torch.bfloat16, False, 128, "mma_sync"),
@@ -748,6 +753,32 @@ def test_ssd_scan_plain_matches_pallas_and_chunked(Bt, S, H, P, G, N, chunk, dty
         np.testing.assert_allclose(y.float().numpy(), np.asarray(y_r, np.float32), atol=atol, rtol=rtol)
         np.testing.assert_allclose(h.numpy(), np.asarray(h_r), atol=atol, rtol=rtol)
     assert ref.ssd_scan_ref is ssd_scan_plain
+
+
+# (Bt, S, H, P, G, N, dtype): chunk 128 past a cluster of 8 chunks, the
+# Hopper kernel's group walk on the card: 9 whole chunks, then 10 with the
+# last one ragged
+SSD_PAST_A_CLUSTER = [
+    (1, 1152, 2, 64, 1, 64, "float32"),
+    (1, 1200, 2, 64, 1, 64, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,dtype", SSD_PAST_A_CLUSTER)
+def test_ssd_scan_plain_matches_pallas_past_a_cluster(Bt, S, H, P, G, N, dtype):
+    """The plain scan, which the card's kernels are held to, against the
+    reference's Pallas kernel (interpret mode) at more chunks than one
+    cluster of the Hopper kernel holds."""
+    x, dt, A, B, C, D = _ssd_inputs(Bt, S, H, P, G, N, seed=S)
+    jdt = getattr(jnp, dtype)
+    jx, jB, jC = (jnp.asarray(a, jdt) for a in (x, B, C))
+    y, h = ssd_scan_plain(_to_torch(jx, dtype), torch.from_numpy(dt), torch.from_numpy(A),
+                          _to_torch(jB, dtype), _to_torch(jC, dtype), torch.from_numpy(D), chunk=128)
+    y_r, h_r = jops.ssd_scan(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC, jnp.asarray(D), chunk=128)
+    atol, rtol = (2e-1, 5e-2) if dtype == "bfloat16" else (1e-3, 1e-3)
+    assert y.shape == (Bt, S, H, P) and h.shape == (Bt, H, P, N)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(y_r, np.float32), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_r), atol=atol, rtol=rtol)
 
 
 def test_ssd_scan_plain_matches_the_recurrence():

@@ -213,6 +213,35 @@ def test_decode_teacher_forced_along_reference_generate(arch):
         assert out[0].tolist() == [int(t[0]) for t in jtoks]
 
 
+@pytest.mark.parametrize("jimpl", ["pallas", "jnp"])
+def test_reduced_mamba2_long_prompt_matches_reference(jimpl):
+    """The SSM serving path at more chunks than a cluster of the Hopper
+    ssd_scan holds: reduced mamba2-2.7b (chunk 16) on a 200-token prompt,
+    13 chunks, the last one ragged.  The port's main path (ssm_impl
+    "kernel", the plain scan on the CPU) against the reference's Pallas
+    kernel (interpret mode) and its jnp route: prefill logits, every
+    layer's final SSM and conv states, then decode_steps teacher-forced
+    along the reference's greedy tokens, 1e-4 in float32."""
+    jmodel, jparams, _, params = _pair("mamba2-2.7b", ssm_impl=jimpl)
+    model = build_model(get_reduced("mamba2-2.7b").replace(param_dtype=torch.float32))
+    assert model.config.ssm_impl == "kernel" and model.config.ssm.chunk == 16
+    prompt = _tokens(model.config.vocab, seed=8, shape=(1, 200))
+    jlogits, jcache = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(prompt)})
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(prompt)})
+    jconv, jstate = jcache
+    assert len(cache) == model.config.n_layers == jstate.shape[0]
+    for i, (conv, state) in enumerate(cache):
+        _close(state, jstate[i], 1e-4)
+        _close(conv, jconv[i], 1e-4)
+    jdecode = jax.jit(jmodel.decode_step)
+    for i in range(4):
+        _close(logits, jlogits, 1e-4)
+        tok = np.asarray(jnp.argmax(jlogits, axis=-1)).astype(np.int32)
+        jlogits, jcache = jdecode(jparams, jcache, jnp.asarray(tok), prompt.shape[1] + i)
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(tok.copy()), prompt.shape[1] + i)
+    _close(logits, jlogits, 1e-4)
+
+
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2-0.5b", "mamba2-2.7b"])
 def test_reduced_bfloat16_within_the_reference_decode_bound(arch):
     jmodel, jparams, model, params = _pair(arch, dtype="bfloat16")
