@@ -33,8 +33,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
-import time
 from functools import partial
 from typing import Optional, Sequence
 
@@ -58,7 +58,7 @@ from ..kernels.kw_queue import kw_queue_plain
 from ..kernels.residual_sampler import residual_sample
 from ..obs.device import DEFAULT_HIST, HistSpec, cell_histograms, sketch_from_device
 from ..obs.evtail import evt_keys
-from ..obs.trace import PID_PROFILER, get_recorder
+from ..obs.trace import get_recorder
 from .workload import MachineClass
 
 __all__ = [
@@ -348,16 +348,20 @@ def batched_queue(arrivals, services, speeds, kernel: bool = False):
     batch = arrivals.shape[:-1]
     J = arrivals.shape[-1]
     c = speeds.shape[0]
-    if kernel or c > 1:
-        outs = kw_queue_kernel(
-            arrivals.reshape(-1, J).contiguous(),
-            services.reshape(-1, J).contiguous(),
-            speeds.contiguous(),
-        )
-        return tuple(z.reshape(batch + (J,)) for z in outs)
-    svc = services / speeds[0]
-    starts, fins = lindley(arrivals, svc)
-    return starts, fins, svc, torch.zeros(arrivals.shape, dtype=torch.int32, device=arrivals.device)
+    queued = kernel or c > 1
+    rec = get_recorder()
+    with rec.section("queue", "engine", rows=math.prod(batch), jobs=J, c=c,
+                     path="kw_queue" if queued else "lindley"):
+        if queued:
+            outs = kw_queue_kernel(
+                arrivals.reshape(-1, J).contiguous(),
+                services.reshape(-1, J).contiguous(),
+                speeds.contiguous(),
+            )
+            return tuple(z.reshape(batch + (J,)) for z in outs)
+        svc = services / speeds[0]
+        starts, fins = lindley(arrivals, svc)
+        return starts, fins, svc, torch.zeros(arrivals.shape, dtype=torch.int32, device=arrivals.device)
 
 
 def _masked_cells(x_sorted, cm, k, r, keep):
@@ -542,33 +546,43 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk):
     geometric-retry transform with its cell's q before the evaluator; None
     takes the fault-free programs.  Cells are evaluated `chunk` at a time,
     which changes no result.  The frontier draws once per grid; the DAG
-    engine once per stage."""
+    engine once per stage.  With a recorder enabled it records the
+    sections `evaluator`, `evaluator.draws` and one `evaluator.chunk` a
+    chunk, and adds its cells to the counter `evaluator.cells`."""
     modes, ks, ts, rs, keeps, ds = pol
     n_cells = ks.shape[0]
-    if qs is None:
-        if modes is None:
-            x, fresh = fork_draws(g, quantile, shape, n, r_cap)
-        else:
-            x, fresh = policy_draws(g, quantile, shape, n, r_cap, n_stages)
-        cm = running_min(fresh)[None]
-        x = x[None]
-        del fresh
-    else:
-        fresh_shape = tuple(shape) + ((n, r_cap) if modes is None else (n_stages, n, r_cap))
-        xr, xv = retry_draws(g, quantile, tuple(shape) + (n,), attempts)
-        fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
-    parts = []
-    for sl in _chunks(n_cells, chunk):
-        if qs is not None:
-            x = retry_transform(xr, xv, _cell(qs[sl], xv.ndim + 1))
-            cm = running_min(retry_transform(fr, fv, _cell(qs[sl], fv.ndim + 1)))
-            if modes is None:
-                x = torch.sort(x, dim=-1).values
-        if modes is None:
-            parts.append(_masked_cells(x, cm, ks[sl], rs[sl], keeps[sl]))
-        else:
-            parts.append(lowered_eval_cells(x, cm, modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl]))
-    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    rec = get_recorder()
+    rec.count("evaluator.cells", n_cells)
+    path = "masked" if modes is None else "lowered"
+    with rec.section("evaluator", "engine", cells=n_cells):
+        with rec.section("evaluator.draws", "engine"):
+            if qs is None:
+                if modes is None:
+                    x, fresh = fork_draws(g, quantile, shape, n, r_cap)
+                else:
+                    x, fresh = policy_draws(g, quantile, shape, n, r_cap, n_stages)
+                cm = running_min(fresh)[None]
+                x = x[None]
+                del fresh
+            else:
+                fresh_shape = tuple(shape) + ((n, r_cap) if modes is None else (n_stages, n, r_cap))
+                xr, xv = retry_draws(g, quantile, tuple(shape) + (n,), attempts)
+                fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
+        parts = []
+        for sl in _chunks(n_cells, chunk):
+            with rec.section("evaluator.chunk", "engine", cells=sl.stop - sl.start, path=path):
+                if qs is not None:
+                    x = retry_transform(xr, xv, _cell(qs[sl], xv.ndim + 1))
+                    cm = running_min(retry_transform(fr, fv, _cell(qs[sl], fv.ndim + 1)))
+                    if modes is None:
+                        x = torch.sort(x, dim=-1).values
+                if modes is None:
+                    parts.append(_masked_cells(x, cm, ks[sl], rs[sl], keeps[sl]))
+                else:
+                    parts.append(
+                        lowered_eval_cells(x, cm, modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl])
+                    )
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
 def _frontier_cells(
@@ -577,12 +591,16 @@ def _frontier_cells(
 ):
     """Every (policy, λ [, q]) cell on one shared set of draws (the
     reference's `_frontier_jit`, or `_frontier_faulty_jit` when `qs` is
-    given): the draws, then the arrivals, from the one generator `g`."""
+    given): the draws, then the arrivals, from the one generator `g`.
+    Returns the stats rows on the host (section `stats`), and the
+    sojourns and costs where they lie."""
     quantile = dist.quantile if dist is not None else partial(emp_quantile, xs)
     shape = (m_trials, n_jobs)
     T, C = cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk)
-    arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
-    return _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
+    with get_recorder().section("stats", "engine"):
+        arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
+        stats, soj, cost = _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
+        return stats.cpu().numpy(), soj, cost  # waits for the device
 
 
 def as_quantile_source(dist_or_samples, device=None):
@@ -673,6 +691,17 @@ def _tail_keys(soj, cost, hist):
     return pcts, cost_pcts, cell_evt
 
 
+def _distinct_laws(cell_policies, lowered, cell_qs) -> int:
+    """The distinct single-job (T, C) laws of a grid: its distinct lowered
+    policy rows, with q on the faulty path.  (T, C) does not depend on λ,
+    so cells that differ only in λ share a law."""
+    # the float columns by their bit patterns, so each row's bytes are its law
+    rows = np.concatenate(
+        (lowered.mode, lowered.k, lowered.t.view(np.int32), lowered.r, lowered.keep.astype(np.int32),
+         lowered.d[:, None]), axis=1)
+    return len({(row.tobytes(), q) for row, q in zip(rows, cell_qs or itertools.repeat(None))})
+
+
 def _eval_cells(
     dist_or_samples,
     cell_policies: Sequence,
@@ -702,89 +731,101 @@ def _eval_cells(
     keys from a sort on the rows' device (`exact_percentiles`, bit-equal
     to the reference's host-side `np.percentile`); `tail="hist"` (or a
     `HistSpec`) from histograms counted on the device, and adds the
-    cost_p* and evt_* keys.  With a recorder enabled (`obs.enable()`), each call records a
-    `frontier_dispatch` span and adds its cells to the `frontier.cells`
-    counter; the reference's `obs.retrace` counter has no counterpart in
-    eager PyTorch (ROADMAP Queue 1 item 6)."""
-    if not cell_policies:
-        raise ValueError("need at least one candidate policy")
-    if any(lam <= 0 for lam in cell_lams):
-        raise ValueError("arrival rate lam must be > 0")
-    hist = _hist_spec(tail)
-    dev = resolve_device(device)
-    dist, xs = as_quantile_source(dist_or_samples, dev)
-    slot = _slot_arrays(n, c, classes, dev)
-    speeds, slot_class, class_slots, names = slot if slot is not None else _c1_slot_arrays(n, dev)
+    cost_p* and evt_* keys.
 
-    n_cells = len(cell_policies)
-    lowered = lower_policies(list(cell_policies), n)
-    if any(name is not None for name in lowered.class_names):
-        raise ValueError(
-            "class-restricted (OnClass) placement changes queue geometry, "
-            "not the single-job law — model the class mix via `classes=`"
-        )
-    r_max = lowered.r_max
-    if r_cap is None:
-        r_cap = r_max + 1
-    elif r_cap < r_max + 1:
-        raise ValueError(f"r_cap={r_cap} < r_max+1={r_max + 1}")
-    if (lowered.k < 0).any() or (lowered.k > n).any() or (lowered.r < 0).any():
-        raise ValueError("lowered fork indices must lie in [0, n] and replica counts >= 0")
-    lams = torch.tensor([float(lam) for lam in cell_lams], dtype=torch.float32, device=dev)
-    qs = None
-    if cell_qs is not None:
-        if len(cell_qs) != n_cells:
-            raise ValueError("need one q per cell")
-        if attempts is None or attempts < 1:
-            raise ValueError("cell_qs needs attempts >= 1")
-        qs = torch.tensor([float(q) for q in cell_qs], dtype=torch.float32, device=dev)
-
-    def t(v):
-        return torch.as_tensor(v, device=dev)
-
-    # grids wholly in the single-stage-quantile/full-width domain take the
-    # single-fork evaluator; anything else the general lowered evaluator
-    general = lowered.multi_stage or lowered.has_time or lowered.has_group
-    if general:
-        pol = tuple(t(v) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
-    else:
-        pol = (None, t(lowered.k[:, 0]), None, t(lowered.r[:, 0]), t(lowered.keep[:, 0]), None)
-    if cell_chunk is None:
-        cell_chunk = cell_chunk_size(
-            m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None
-        )
+    With a recorder enabled (`obs.enable()`), each call is one root section
+    `frontier_dispatch` (args `cells`, `laws`, `m_trials`, `n_jobs`, `tail`,
+    `chunk`) up to its last row, holding `frontier.prepare` and
+    `frontier.rows` (cat "host"), `evaluator` (`cell_tc`), `stats` (with
+    `batched_queue`'s `queue`) and `tails`; it adds its cells to the
+    counter `frontier.cells` (the evaluator adds those it evaluates to
+    `evaluator.cells`), and its distinct (T, C) laws to `evaluator.laws`."""
     rec = get_recorder()
-    if rec.enabled:
-        t0 = time.perf_counter()
-    stats, soj, cost = _frontier_cells(
-        _generator(seed, dev), xs, pol, lams, qs, speeds, slot_class, class_slots, dist,
-        n, n_jobs, m_trials, r_cap, lowered.n_stages, attempts, kernel, cell_chunk,
-    )
-    stats = stats.cpu().numpy()  # waits for the device
-    if rec.enabled:
-        rec.span(
-            "frontier_dispatch", "engine", t0, time.perf_counter() - t0, pid=PID_PROFILER,
-            args=dict(cells=n_cells, padded=n_cells, m_trials=m_trials, n_jobs=n_jobs,
-                      tail="exact" if hist is None else "hist"),
+    dev = resolve_device(device)
+    with rec.section("frontier_dispatch", "engine", root=True, cells=len(cell_policies),
+                     m_trials=m_trials, n_jobs=n_jobs) as root:
+        with rec.section("frontier.prepare", "host"):
+            if not cell_policies:
+                raise ValueError("need at least one candidate policy")
+            if any(lam <= 0 for lam in cell_lams):
+                raise ValueError("arrival rate lam must be > 0")
+            hist = _hist_spec(tail)
+            dist, xs = as_quantile_source(dist_or_samples, dev)
+            slot = _slot_arrays(n, c, classes, dev)
+            speeds, slot_class, class_slots, names = slot if slot is not None else _c1_slot_arrays(n, dev)
+
+            n_cells = len(cell_policies)
+            lowered = lower_policies(list(cell_policies), n)
+            if any(name is not None for name in lowered.class_names):
+                raise ValueError(
+                    "class-restricted (OnClass) placement changes queue geometry, "
+                    "not the single-job law — model the class mix via `classes=`"
+                )
+            r_max = lowered.r_max
+            if r_cap is None:
+                r_cap = r_max + 1
+            elif r_cap < r_max + 1:
+                raise ValueError(f"r_cap={r_cap} < r_max+1={r_max + 1}")
+            if (lowered.k < 0).any() or (lowered.k > n).any() or (lowered.r < 0).any():
+                raise ValueError("lowered fork indices must lie in [0, n] and replica counts >= 0")
+            lams = torch.tensor([float(lam) for lam in cell_lams], dtype=torch.float32, device=dev)
+            qs = None
+            if cell_qs is not None:
+                if len(cell_qs) != n_cells:
+                    raise ValueError("need one q per cell")
+                if attempts is None or attempts < 1:
+                    raise ValueError("cell_qs needs attempts >= 1")
+                qs = torch.tensor([float(q) for q in cell_qs], dtype=torch.float32, device=dev)
+
+            def t(v):
+                return torch.as_tensor(v, device=dev)
+
+            # grids wholly in the single-stage-quantile/full-width domain take the
+            # single-fork evaluator; anything else the general lowered evaluator
+            general = lowered.multi_stage or lowered.has_time or lowered.has_group
+            if general:
+                pol = tuple(
+                    t(v) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d)
+                )
+            else:
+                pol = (None, t(lowered.k[:, 0]), None, t(lowered.r[:, 0]), t(lowered.keep[:, 0]), None)
+            if cell_chunk is None:
+                cell_chunk = cell_chunk_size(
+                    m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None
+                )
+            if rec.enabled:
+                root.note(tail="exact" if hist is None else "hist", chunk=cell_chunk)
+                rec.count("frontier.cells", n_cells)
+
+                def laws():  # counted when the recorder is read, outside the timed call
+                    n_laws = _distinct_laws(cell_policies, lowered, cell_qs)
+                    root.note(laws=n_laws)
+                    rec.count("evaluator.laws", n_laws)
+
+                rec.later(laws)
+        stats, soj, cost = _frontier_cells(
+            _generator(seed, dev), xs, pol, lams, qs, speeds, slot_class, class_slots, dist,
+            n, n_jobs, m_trials, r_cap, lowered.n_stages, attempts, kernel, cell_chunk,
         )
-        rec.count("frontier.cells", n_cells)
-    pcts, cost_pcts, cell_evt = _tail_keys(soj, cost, hist)
-    rows = []
-    nk = len(_FRONTIER_KEYS)
-    for i, (pol_i, lam) in enumerate(zip(cell_policies, cell_lams)):
-        row = stats[i]
-        d = dict(lam=float(lam), policy=pol_i.label(),
-                 **dict(zip(_FRONTIER_KEYS, map(float, row[:nk]))))
-        if cell_qs is not None:
-            d["q"] = float(cell_qs[i])
-        d["p50"], d["p99"], d["p999"] = (float(pcts[j, i]) for j in range(3))
-        if hist is not None:
-            d["cost_p50"], d["cost_p99"], d["cost_p999"] = (float(cost_pcts[j, i]) for j in range(3))
-            d.update(cell_evt[i])
-        if slot is not None:  # mirror VectorFleetResult.summary(): per-class util
-            for name, u in zip(names, row[nk:]):
-                d[f"util_{name}"] = float(u)
-        rows.append(d)
+        with rec.section("tails", "engine"):
+            pcts, cost_pcts, cell_evt = _tail_keys(soj, cost, hist)
+        with rec.section("frontier.rows", "host"):
+            rows = []
+            nk = len(_FRONTIER_KEYS)
+            for i, (pol_i, lam) in enumerate(zip(cell_policies, cell_lams)):
+                row = stats[i]
+                d = dict(lam=float(lam), policy=pol_i.label(),
+                         **dict(zip(_FRONTIER_KEYS, map(float, row[:nk]))))
+                if cell_qs is not None:
+                    d["q"] = float(cell_qs[i])
+                d["p50"], d["p99"], d["p999"] = (float(pcts[j, i]) for j in range(3))
+                if hist is not None:
+                    d["cost_p50"], d["cost_p99"], d["cost_p999"] = (float(cost_pcts[j, i]) for j in range(3))
+                    d.update(cell_evt[i])
+                if slot is not None:  # mirror VectorFleetResult.summary(): per-class util
+                    for name, u in zip(names, row[nk:]):
+                        d[f"util_{name}"] = float(u)
+                rows.append(d)
     return rows
 
 

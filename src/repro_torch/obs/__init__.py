@@ -11,8 +11,7 @@
   * `device`    — γ-bucket histograms counted on the device for the fused
     engines' `tail="hist"` path (PyTorch);
   * `profile`   — wall time with CUDA events, device time by kernel from
-    torch.profiler and peak device memory of one call, plus a
-    recompilation watch over `torch.compile`d callables (PyTorch);
+    torch.profiler and peak device memory of one call (PyTorch);
   * `evtail`    — peaks-over-threshold GPD tails fitted on sketch buckets
     (numpy copy);
   * `slo`       — SLO objects + multi-window error-budget burn rates (copy);
@@ -47,7 +46,7 @@ from .evtail import (  # noqa: F401
     gpd_params_of,
 )
 from .export import load_chrome_trace, to_chrome_trace, write_chrome_trace  # noqa: F401
-from .profile import RetraceWatch, jit_cache_size, kernel_profile  # noqa: F401
+from .profile import kernel_profile  # noqa: F401
 from .registry import Counter, Gauge, Histogram, MetricsRegistry  # noqa: F401
 from .sketch import QuantileSketch, merge_all  # noqa: F401
 from .slo import SLO, SLOTracker, WindowedSketch, trackers_for  # noqa: F401
@@ -78,7 +77,7 @@ __all__ = [
     "HistSpec", "DEFAULT_HIST", "cell_histograms", "device_histogram",
     "sketch_from_device",
     "to_chrome_trace", "write_chrome_trace", "load_chrome_trace",
-    "kernel_profile", "jit_cache_size", "RetraceWatch",
+    "kernel_profile",
     "EVTail", "GPDFit", "fit_gpd", "evt_keys", "domain_of_fit",
     "gpd_params_of",
     "SLO", "SLOTracker", "WindowedSketch", "trackers_for",

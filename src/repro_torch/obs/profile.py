@@ -1,5 +1,4 @@
-"""Wall-time / device-time / memory profiling of one call, and a
-recompilation watch.
+"""Wall-time / device-time / memory profiling of one call.
 
 Counterpart of `repro.obs.profile`, rewritten for PyTorch.  The reference
 lowers and compiles a `jax.jit` function, reads bytes-by-op from its
@@ -44,63 +43,9 @@ from ..device import resolve_device
 from .registry import MetricsRegistry
 from .trace import NULL_RECORDER, PID_PROFILER, NullRecorder, Recorder
 
-__all__ = ["kernel_profile", "jit_cache_size", "RetraceWatch"]
+__all__ = ["kernel_profile"]
 
 _TOP_KERNELS = 10
-
-
-def jit_cache_size(fn) -> Optional[int]:
-    """Number of compiled entries that dynamo holds for a `torch.compile`d
-    callable's code, or None for any other callable.
-
-    A growing count across calls means the call recompiled (a new input
-    shape or dtype broke a guard).  The count belongs to the wrapped
-    function's code object, so two compiled wrappers of one function share
-    it.  Eager code has no such count: None means unobservable, as the
-    reference returns None for a callable that is not jitted."""
-    orig = getattr(fn, "_torchdynamo_orig_callable", None)
-    if orig is None:  # a compiled nn.Module
-        orig = getattr(getattr(fn, "_orig_mod", None), "forward", None)
-    code = getattr(orig, "__code__", None)
-    if code is None:
-        return None
-    try:
-        from torch._dynamo.eval_frame import _debug_get_cache_entry_list
-
-        return len(_debug_get_cache_entry_list(code))
-    except Exception:
-        return None
-
-
-class RetraceWatch:
-    """Context manager flagging recompilations of one compiled callable.
-
-    Usage::
-
-        with RetraceWatch(compiled_fn) as w:
-            compiled_fn(x)
-        if w.retraced: rec.count("obs.retrace", w.delta)
-
-    `delta` is 0 (cache hit), > 0 (that many fresh compilations), or None
-    when the callable exposes no cache count, as an eager one does (the
-    contract is then unobservable, not violated)."""
-
-    def __init__(self, fn):
-        self.fn = fn
-        self.delta: Optional[int] = None
-
-    def __enter__(self) -> "RetraceWatch":
-        self._before = jit_cache_size(self.fn)
-        return self
-
-    def __exit__(self, *exc) -> None:
-        after = jit_cache_size(self.fn)
-        if self._before is not None and after is not None:
-            self.delta = after - self._before
-
-    @property
-    def retraced(self) -> bool:
-        return bool(self.delta)
 
 
 def _device_ms_by_kernel(call, cuda: bool) -> dict:

@@ -26,12 +26,30 @@ Span/instant pids partition the trace into Perfetto "processes":
 scheduler lifecycle rows, controller decisions, serving, kernel
 profiling, and one row per DAG stage.  `repro_torch.obs.export` turns a
 Recorder into Chrome trace-event JSON.
+
+`Recorder.section` (the port's own) times a layer of the program on the
+profiler pid, where the spans above carry sim time: its spans stamp the
+Unix-epoch clock (`time.time_ns()`, in seconds), the clock torch.profiler's
+Chrome export reaches as `ts + baseTimeNanoseconds / 1000`, and, while a
+profiler runs, open a range of the same name (an operator event, cat
+"cpu_op", of `torch._C._profiler._RecordFunctionFast`: about 1.6 µs a
+range under the profiler, where `torch.profiler.record_function` takes
+about 15), so the profiler's trace shows them beside the kernels.  Each carries
+`args` `id`, `parent` (the enclosing open section, or None) and `query`
+(the id of the enclosing root section, e.g. one `frontier_dispatch` call,
+or None outside a root).  A section records host time only and never
+touches the device: a section's device time is that of the operations
+launched inside its range in a profiler's trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import time
 from typing import Mapping, Optional
+
+import torch
 
 __all__ = [
     "Span", "Instant", "CounterSample", "Recorder", "NullRecorder",
@@ -83,16 +101,96 @@ class CounterSample:
     pid: int = PID_FLEET
 
 
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_Range = torch._C._profiler._RecordFunctionFast
+
+
+class _Section:
+    """One `Recorder.section`: a context manager, kept by the recorder once
+    closed and made a `Span` when the recorder's spans are read (see the
+    module docstring)."""
+
+    __slots__ = ("rec", "name", "cat", "args", "root", "id", "parent", "query", "_rf", "_t0", "_t1")
+
+    def __init__(self, rec, name, cat, root, args):
+        self.rec, self.name, self.cat, self.root, self.args = rec, name, cat, root, args
+
+    def note(self, **args) -> None:
+        """Add args to the span (values known only once it is open)."""
+        self.args.update(args)
+
+    def __enter__(self) -> "_Section":
+        rec = self.rec
+        stack = rec._open
+        self.id = next(rec._ids)
+        outer = stack[-1] if stack else None
+        self.parent = None if outer is None else outer.id
+        self.query = self.id if self.root else None if outer is None else outer.query
+        stack.append(self)
+        self._rf = None
+        if _profiler_enabled():
+            # the profiler stamps the range's start inside the call that
+            # opens it (the span starts in the middle of that call) and its
+            # end inside the call that closes it (the span ends right after)
+            self._rf = _Range(self.name)
+            t = time.time_ns()
+            self._rf.__enter__()
+            self._t0 = (t + time.time_ns()) // 2
+        else:
+            self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self._t1 = time.time_ns()
+        rec, self.rec = self.rec, None  # a closed section holds no recorder
+        rec._open.pop()
+        rec._closed.append(self)
+        return False
+
+    def span(self) -> Span:
+        """The closed section as a span."""
+        args, t0, t1 = self.args, self._t0, self._t1
+        args["id"], args["parent"], args["query"] = self.id, self.parent, self.query
+        return Span(self.name, self.cat, t0 / 1e9, (t1 - t0) / 1e9, PID_PROFILER, 0, args)
+
+
+class _NullSection:
+    """The disabled section: one shared instance, entered and left for
+    nothing."""
+
+    __slots__ = ()
+
+    def note(self, **args) -> None:
+        pass
+
+    def __enter__(self) -> "_NullSection":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SECTION = _NullSection()
+
+
 class Recorder:
     """Collects spans, instants, counter samples, and aggregate counters."""
 
     enabled = True
 
     def __init__(self):
-        self.spans: list[Span] = []
+        self._spans: list[Span] = []
         self.instants: list[Instant] = []
         self.samples: list[CounterSample] = []
-        self.counters: dict[str, float] = {}
+        self._counters: dict[str, float] = {}
+        self._open: list[_Section] = []
+        # closed sections not yet made spans, and work for args and counts
+        # put off (`later`): a recording's host cost is paid when it is read
+        self._closed: list[_Section] = []
+        self._later: list = []
+        self._ids = itertools.count(1)
         self.process_names: dict[int, str] = {
             PID_FLEET: "fleet.scheduler",
             PID_CONTROLLER: "fleet.controller",
@@ -100,6 +198,15 @@ class Recorder:
             PID_PROFILER: "obs.profiler",
         }
         self.thread_names: dict[tuple[int, int], str] = {}
+
+    @property
+    def spans(self) -> list[Span]:
+        """Every span in the order it closed, closed sections included."""
+        self._settle()
+        if self._closed:
+            self._spans.extend(s.span() for s in self._closed)
+            self._closed.clear()
+        return self._spans
 
     # ------------------------------------------------------------- emission
     def span(self, name: str, cat: str, ts: float, dur: float, *,
@@ -118,8 +225,25 @@ class Recorder:
                        pid: int = PID_FLEET) -> None:
         self.samples.append(CounterSample(name, float(ts), float(value), pid))
 
+    @property
+    def counters(self) -> dict[str, float]:
+        self._settle()
+        return self._counters
+
     def count(self, name: str, amount: float = 1.0) -> None:
-        self.counters[name] = self.counters.get(name, 0.0) + amount
+        self._counters[name] = self._counters.get(name, 0.0) + amount
+
+    def later(self, fn) -> None:
+        """Call `fn()` when the spans or counters are next read: host work
+        that only works out a value to record (a section's args, a count),
+        kept out of the code the sections time."""
+        self._later.append(fn)
+
+    def _settle(self) -> None:
+        while self._later:
+            later, self._later = self._later, []
+            for fn in later:
+                fn()
 
     def name_process(self, pid: int, name: str) -> None:
         self.process_names[pid] = name
@@ -127,15 +251,24 @@ class Recorder:
     def name_thread(self, pid: int, tid: int, name: str) -> None:
         self.thread_names[(pid, tid)] = name
 
+    def section(self, name: str, cat: str, *, root: bool = False, **args) -> _Section:
+        """A context manager timing the code it encloses as a span on the
+        profiler pid, with `args` (see the module docstring).  `root`
+        starts a query: every section opened inside it shares its id as
+        `query`."""
+        return _Section(self, name, cat, root, args)
+
     # ------------------------------------------------------------- queries
     def spans_named(self, name: str) -> list[Span]:
         return [s for s in self.spans if s.name == name]
 
     def clear(self) -> None:
+        self._later.clear()
         self.spans.clear()
         self.instants.clear()
         self.samples.clear()
         self.counters.clear()
+        self._closed.clear()
 
     def __len__(self) -> int:
         return len(self.spans) + len(self.instants) + len(self.samples)
@@ -171,6 +304,12 @@ class NullRecorder:
         pass
 
     def name_thread(self, *a, **k) -> None:
+        pass
+
+    def section(self, *a, **k) -> _NullSection:
+        return _NULL_SECTION
+
+    def later(self, *a, **k) -> None:
         pass
 
     def spans_named(self, name: str) -> list:

@@ -769,6 +769,61 @@ def test_device_histogram_on_card_matches_the_cpu():
     torch.testing.assert_close(ag.cpu(), ac, rtol=1e-6, atol=0.0)
 
 
+def test_sections_hold_their_kernels_in_a_profiler_trace_on_card(monkeypatch):
+    """One frontier call on the card under torch.profiler, recorder on: each
+    section is a range of its name in the profiler's trace, the card's
+    kernels were launched inside the evaluator's and the queue's ranges, and
+    a chunk's or the draws' launches lie inside the evaluator's."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    dev = _card()
+    x = np.random.default_rng(0).exponential(1.0, 500) + 1.0
+    pols = [SingleForkPolicy(0.1, 1, True), SingleForkPolicy(0.2, 1, False)]
+
+    monkeypatch.setattr(vector, "cell_chunk_size", lambda *a, **k: 2)  # 4 cells: 2 chunks
+
+    def call():
+        return vector.frontier(x, pols, (0.1, 0.2), 40, 256, m_trials=4, c=2, device=dev)
+
+    call()
+    rec = obs.enable(obs.Recorder())
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+    finally:
+        obs.disable()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    names = {s.name for s in rec.spans}
+    ranges = {n: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "cpu_op" and e.get("name") == n] for n in names}
+    assert all(len(ranges[n]) == len(rec.spans_named(n)) for n in names)
+    kernels = {e["args"]["correlation"] for e in events if e.get("cat") == "kernel"}
+    launches = [e["ts"] for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in kernels]
+
+    def inside(name):
+        return [t for t in launches if any(a <= t <= b for a, b in ranges[name])]
+
+    assert len(ranges["evaluator.chunk"]) == 2
+    for name in ("evaluator", "evaluator.draws", "evaluator.chunk", "queue", "stats"):
+        assert inside(name), name
+    assert set(inside("evaluator.draws")) | set(inside("evaluator.chunk")) <= set(inside("evaluator"))
+    assert set(inside("queue")) <= set(inside("stats"))
+
+
 # the controller's re-plan queues: policy_search at search_jobs = 192 (one
 # launch, J <= SEGMENT_JOBS), 29 candidates x 8 trials = 232 rows, c = 3
 # (REGIME_SHIFT's 48 slots / 16 tasks) and c = 4 (32 replicas / 8 requests)

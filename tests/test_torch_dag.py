@@ -184,8 +184,7 @@ def test_frontier_dispatch_span_and_cells_counter():
     assert [s.args["tail"] for s in spans] == ["exact", "hist"]
     assert [s.args["cells"] for s in spans] == [2, 1]
     assert all(s.pid == obs.PID_PROFILER and s.dur >= 0 for s in spans)
-    assert rec.counters == {"frontier.cells": 3.0}
-    assert "obs.retrace" not in rec.counters
+    assert rec.counters == {"frontier.cells": 3.0, "evaluator.cells": 3.0, "evaluator.laws": 2.0}
 
 
 # ---------------------------------------- critical path on shared arrays

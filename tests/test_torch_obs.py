@@ -5,9 +5,8 @@ registry, slo, export and dashboard are numpy and plain-Python copies, so
 on the same inputs they must give the same answers: snapshots, merges,
 error messages, Chrome trace dicts, HTML and text are held equal, and burn
 rates and SLO reports at rel 1e-12.  `profile` is rewritten for PyTorch
-(CUDA events, torch.profiler, dynamo's cache count), so it is held to the
-reference's contract (keys, spans, gauges, RetraceWatch's deltas), not to
-its numbers.
+(CUDA events, torch.profiler), so it is held to the reference's contract
+(keys, spans, gauges), not to its numbers.
 """
 
 import json
@@ -241,21 +240,3 @@ def test_kernel_profile_on_the_cpu_keeps_the_reference_contract():
     assert set(reg.collect()) == {'kernel_wall_s{kernel="toy"}', 'kernel_compile_s{kernel="toy"}'}
     assert reg.gauge("kernel_wall_s", {"kernel": "toy"}).value == prof["wall_s"]
 
-
-def test_retrace_watch_is_unobservable_on_eager_code_and_counts_recompiles():
-    assert tobs.jit_cache_size(lambda x: x) is None
-    with tobs.RetraceWatch(lambda x: x) as w:
-        pass
-    assert w.delta is None and not w.retraced  # unobservable, not violated
-
-    def f(x):
-        return x * 2.0 + 1.0
-
-    g = torch.compile(f, backend="eager")
-    g(torch.ones(3))  # warm
-    with tobs.RetraceWatch(g) as w1:
-        g(torch.full((3,), 2.0))  # same shape and dtype: cache hit
-    assert w1.delta == 0 and not w1.retraced
-    with tobs.RetraceWatch(g) as w2:
-        g(torch.ones(3, dtype=torch.float64))  # new dtype: a fresh compilation
-    assert w2.delta >= 1 and w2.retraced
