@@ -13,7 +13,8 @@ times.
   * Per stage, ONE shared common-random-number draw set feeds every
     (λ × per-stage-policy-vector) cell (`fleet.vector.cell_tc`: the
     single-fork or lowered evaluator, with the geometric-retry transform
-    under a fault).  The draws of a stage are freed before the next
+    under a fault), each distinct stage law (the stage's policy, and q)
+    evaluated once and gathered to its cells.  The draws of a stage are freed before the next
     stage's are taken; only the per-cell (cells, m, J) tensors carry over.
   * Stage queues run through `fleet.vector.batched_queue`: the
     Kiefer–Wolfowitz kernel (`kernels.kw_queue`, CUDA on the card) at
@@ -57,6 +58,7 @@ from ..fleet.vector import (
     _tail_keys,
     as_quantile_source,
     batched_queue,
+    _law_tensors,
     cell_chunk_size,
     cell_tc,
     emp_quantile,
@@ -84,12 +86,15 @@ def _plan(dag: JobDAG, device):
     return tuple(plan), tuple(dag.index[n] for n in dag.sinks), tuple(xss)
 
 
-def _stage_pols(dag: JobDAG, vecs, device):
-    """Per stage, the lowered policy tuple `fleet.vector.cell_tc` takes and
-    its inner stage count.  Row i of stage s is cell i's policy for that
-    stage.  All-single-fork grids take the single-fork program in every
-    stage (modes None); a grid with any algebra policy takes the lowered
-    evaluator in every stage, as in the reference."""
+def _stage_pols(dag: JobDAG, vecs, device, cell_qs=None):
+    """Per stage, what `fleet.vector.cell_tc` takes for the stage's
+    distinct laws (`fleet.vector._law_tensors`: pol, qs, law_of_cell) and
+    its inner stage count.  Cell i's policy for a stage and its q
+    (`cell_qs`, the faulty path) make its law there: a stage's rows repeat
+    across λ, and across the vectors that share that stage's policy.
+    All-single-fork grids take the single-fork program in
+    every stage (modes None); a grid with any algebra policy takes the
+    lowered evaluator in every stage, as in the reference."""
     lps = [
         lower_policies([vec[s] for vec in vecs], spec.n_tasks)
         for s, spec in enumerate(dag.stages)
@@ -101,18 +106,9 @@ def _stage_pols(dag: JobDAG, vecs, device):
                 "and replica counts >= 0"
             )
     general = any(lp.multi_stage or lp.has_time or lp.has_group for lp in lps)
-
-    def t(v):
-        return torch.as_tensor(v, device=device)
-
-    if general:
-        return [
-            (tuple(t(v) for v in (lp.mode, lp.k, lp.t, lp.r, lp.keep, lp.d)), lp.n_stages)
-            for lp in lps
-        ], True
     return [
-        ((None, t(lp.k[:, 0]), None, t(lp.r[:, 0]), t(lp.keep[:, 0]), None), 1) for lp in lps
-    ], False
+        _law_tensors(lp, cell_qs, general, device) + (lp.n_stages if general else 1,) for lp in lps
+    ], general
 
 
 def _resolve_r_caps(dag: JobDAG, cell_vectors, r_caps):
@@ -149,24 +145,26 @@ def stage_queue(ready, T, c: int, kernel: bool = False, in_order: bool = False):
     return st, fi, sl
 
 
-def _compose(g, xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, general,
-             qs=None, attempts=None):
+def _compose(g, xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, general, attempts=None):
     """The stage-composed core: per-stage (cells, m, J) tensors.
 
     Stages advance in the DAG's validated topological order: each draws its
-    CRN set, evaluates every cell's (T, C) on it (in chunks under
-    `fleet.vector.CELL_CHUNK_BYTES`), frees the draws, and queues its jobs
-    in barrier-release order.  Returns (arrivals, readys, starts, finishes,
+    CRN set, evaluates each of its distinct laws' (T, C) on it once (in
+    chunks under `fleet.vector.CELL_CHUNK_BYTES`), gives every cell its
+    law's, frees the draws, and queues its jobs in barrier-release order.
+    `pols` is `_stage_pols`' list; a stage with laws' qs takes the
+    geometric-retry transform with `attempts` draws.  Returns (arrivals, readys, starts, finishes,
     Ts, Cs), the last five one tensor per stage."""
     shape = (m_trials, n_jobs)
     arrivals = None
     readys, starts, finishes, Ts, Cs = [], [], [], [], []
     for s, (n_s, c_s, preds, dist_s) in enumerate(plan):
         quantile = dist_s.quantile if dist_s is not None else partial(emp_quantile, xss[s])
-        pol, n_stages = pols[s]
+        pol, qs, law_of_cell, n_stages = pols[s]
         chunk = cell_chunk_size(m_trials, n_jobs, n_s, r_caps[s], n_stages, general,
                                 attempts if qs is not None else None)
-        T_s, C_s = cell_tc(g, quantile, pol, qs, shape, n_s, r_caps[s], n_stages, attempts, chunk)
+        T_s, C_s = cell_tc(g, quantile, pol, qs, shape, n_s, r_caps[s], n_stages, attempts, chunk,
+                           law_of_cell)
         if arrivals is None:
             # after the first stage's draws, as the frontier draws them
             arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
@@ -291,17 +289,15 @@ def _eval_dag_cells(dag, cell_vectors, cell_lams, n_jobs, m_trials, seed, kernel
     r_caps = _resolve_r_caps(dag, cell_vectors, r_caps)
     n_cells = len(cell_vectors)
     lams = torch.tensor([float(lam) for lam in cell_lams], dtype=torch.float32, device=dev)
-    qs = None
     if cell_qs is not None:
         if len(cell_qs) != n_cells:
             raise ValueError("need one q per cell")
         if attempts is None or attempts < 1:
             raise ValueError("cell_qs needs attempts >= 1")
-        qs = torch.tensor([float(q) for q in cell_qs], dtype=torch.float32, device=dev)
-    pols, general = _stage_pols(dag, cell_vectors, dev)
+    pols, general = _stage_pols(dag, cell_vectors, dev, cell_qs)
     paths = _compose(
         _generator(seed, dev), xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel,
-        general, qs=qs, attempts=attempts,
+        general, attempts=attempts,
     )
     stats, sojourn, cost = _dag_stats(*paths, lams, plan, sinks)
     del paths

@@ -6,7 +6,11 @@ whose per-job service time is the single-job makespan T(π) and whose
 per-job cost is C(π).  The engine evaluates a whole (λ × π [× q]) grid on
 one shared set of common-random-number draws:
 
-  draws → single-job (T, C) per cell → queue per (cell, trial) → stats
+  draws → single-job (T, C) per law → queue per (cell, trial) → stats
+
+(T, C) does not depend on λ: the cells of one lowered policy row (and q)
+share a law (`cell_laws`), evaluated once on the draws and gathered to its
+cells on the device.
 
   * `masked_single_fork` evaluates single-fork cells with a dynamic fork
     point (k, r, keep enter as per-cell tensors, not shapes);
@@ -18,7 +22,7 @@ one shared set of common-random-number draws:
     `kernels.residual_sampler` (eq. (7): F̄_Y = F̄_X^{r+1}).
 
 Where JAX fused the vmap over cells under XLA, this module writes the cell
-axis out and evaluates cells in chunks sized to a fixed memory budget
+axis out and evaluates laws in chunks sized to a fixed memory budget
 (`CELL_CHUNK_BYTES`), all over the ONE shared draw set; the chunk size does
 not change any result.  Cell padding (`pad_cells`) existed in JAX only to
 avoid recompiles: the port evaluates only the real cells and keeps the
@@ -33,7 +37,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import itertools
 import math
 from functools import partial
 from typing import Optional, Sequence
@@ -81,7 +84,7 @@ __all__ = [
     "trace_kill_rollout",
 ]
 
-#: device memory one chunk of cells may take for its single-job evaluation
+#: device memory one chunk of laws may take for its single-job evaluation
 CELL_CHUNK_BYTES = 4 << 30
 
 @dataclasses.dataclass
@@ -472,8 +475,8 @@ def _chunks(n_cells: int, chunk: int):
 
 
 def cell_chunk_size(m_trials, n_jobs, n, r_cap, n_stages, general, attempts=None) -> int:
-    """Cells per chunk under `CELL_CHUNK_BYTES`, from the size of the
-    (cell, trial, job, task) intermediates of the evaluator that runs."""
+    """Laws per chunk under `CELL_CHUNK_BYTES`, from the size of the
+    (law, trial, job, task) intermediates of the evaluator that runs."""
     elems = m_trials * n_jobs * n
     if general:
         # argsorts and permutations are int64; cohorts grow per stage
@@ -534,27 +537,33 @@ def _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel
     return torch.cat([base, class_util], dim=1), soj, cost
 
 
-def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk):
+def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, law_of_cell=None):
     """Single-job (T, C) of every cell, each (cells, *shape), on ONE shared
     draw set taken from the generator `g` (the reference's per-cell vmap).
 
-    `pol` is (modes, ks, ts, rs, keeps, ds) of lowered (cells, S) tensors,
-    with modes None for a grid wholly in the single-stage-quantile /
-    full-width domain, which takes the single-fork evaluator — the
-    host-side program selection of the reference.  `qs` (one per cell, with
-    the retry-draw width `attempts`) runs every draw through the
-    geometric-retry transform with its cell's q before the evaluator; None
-    takes the fault-free programs.  Cells are evaluated `chunk` at a time,
-    which changes no result.  The frontier draws once per grid; the DAG
-    engine once per stage.  With a recorder enabled it records the
-    sections `evaluator`, `evaluator.draws` and one `evaluator.chunk` a
-    chunk, and adds its cells to the counter `evaluator.cells`."""
+    `pol` is (modes, ks, ts, rs, keeps, ds) of lowered (laws, S) tensors,
+    one row a distinct single-job law, with modes None for a grid wholly in
+    the single-stage-quantile / full-width domain, which takes the
+    single-fork evaluator — the host-side program selection of the
+    reference.  `qs` (one per law, with the retry-draw width `attempts`)
+    runs every draw through the geometric-retry transform with its law's q
+    before the evaluator; None takes the fault-free programs.
+    `law_of_cell` (cells,) gives each cell's law (`cell_laws`); None means
+    every cell is its own law.  The draws do not depend on the laws; each
+    law is evaluated once on them, `chunk` laws at a time, which changes no
+    result, and each cell takes its law's (T, C).  The frontier draws once
+    per grid; the DAG engine once per stage.  With a recorder enabled it
+    records the sections `evaluator` (args `cells`, `laws`),
+    `evaluator.draws` and one `evaluator.chunk` a chunk (its `cells` are
+    the laws it evaluates), and adds the laws it evaluates to the counter
+    `evaluator.cells`."""
     modes, ks, ts, rs, keeps, ds = pol
-    n_cells = ks.shape[0]
+    n_laws = ks.shape[0]
     rec = get_recorder()
-    rec.count("evaluator.cells", n_cells)
+    rec.count("evaluator.cells", n_laws)
     path = "masked" if modes is None else "lowered"
-    with rec.section("evaluator", "engine", cells=n_cells):
+    n_cells = n_laws if law_of_cell is None else law_of_cell.shape[0]
+    with rec.section("evaluator", "engine", cells=n_cells, laws=n_laws):
         with rec.section("evaluator.draws", "engine"):
             if qs is None:
                 if modes is None:
@@ -569,7 +578,7 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk):
                 xr, xv = retry_draws(g, quantile, tuple(shape) + (n,), attempts)
                 fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
         parts = []
-        for sl in _chunks(n_cells, chunk):
+        for sl in _chunks(n_laws, chunk):
             with rec.section("evaluator.chunk", "engine", cells=sl.stop - sl.start, path=path):
                 if qs is not None:
                     x = retry_transform(xr, xv, _cell(qs[sl], xv.ndim + 1))
@@ -582,11 +591,14 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk):
                     parts.append(
                         lowered_eval_cells(x, cm, modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl])
                     )
-        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+        T, C = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+        if law_of_cell is not None:
+            T, C = T.index_select(0, law_of_cell), C.index_select(0, law_of_cell)
+        return T, C
 
 
 def _frontier_cells(
-    g, xs, pol, lams, qs, speeds, slot_class, class_slots, dist, n, n_jobs, m_trials,
+    g, xs, pol, lams, qs, law_of_cell, speeds, slot_class, class_slots, dist, n, n_jobs, m_trials,
     r_cap, n_stages, attempts, kernel, chunk,
 ):
     """Every (policy, λ [, q]) cell on one shared set of draws (the
@@ -596,7 +608,7 @@ def _frontier_cells(
     sojourns and costs where they lie."""
     quantile = dist.quantile if dist is not None else partial(emp_quantile, xs)
     shape = (m_trials, n_jobs)
-    T, C = cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk)
+    T, C = cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, law_of_cell)
     with get_recorder().section("stats", "engine"):
         arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
         stats, soj, cost = _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
@@ -691,15 +703,48 @@ def _tail_keys(soj, cost, hist):
     return pcts, cost_pcts, cell_evt
 
 
-def _distinct_laws(cell_policies, lowered, cell_qs) -> int:
-    """The distinct single-job (T, C) laws of a grid: its distinct lowered
-    policy rows, with q on the faulty path.  (T, C) does not depend on λ,
-    so cells that differ only in λ share a law."""
-    # the float columns by their bit patterns, so each row's bytes are its law
-    rows = np.concatenate(
-        (lowered.mode, lowered.k, lowered.t.view(np.int32), lowered.r, lowered.keep.astype(np.int32),
-         lowered.d[:, None]), axis=1)
-    return len({(row.tobytes(), q) for row, q in zip(rows, cell_qs or itertools.repeat(None))})
+def cell_laws(lowered, cell_qs=None):
+    """Group a grid's cells by their single-job (T, C) law: its distinct
+    lowered policy rows, with q on the faulty path, each keyed by its bit
+    pattern (the float columns and q as float32 bits).  (T, C) does not
+    depend on λ, so cells that differ only in λ share a law.  Returns
+    (reps, law_of_cell): the first cell of each law, in order of first
+    appearance, and each cell's law as an int64 array, or None where no law
+    repeats (every cell is its own law)."""
+    cols = [lowered.mode, lowered.k, lowered.t.view(np.int32), lowered.r,
+            lowered.keep.astype(np.int32), lowered.d[:, None]]
+    if cell_qs is not None:
+        cols.append(np.asarray(cell_qs, dtype=np.float32).view(np.int32)[:, None])
+    rows = np.ascontiguousarray(np.concatenate(cols, axis=1))
+    keys = rows.view(np.dtype((np.void, rows.itemsize * rows.shape[1]))).reshape(-1)
+    _, first, inverse = np.unique(keys, return_index=True, return_inverse=True)
+    if first.size == keys.size:
+        return np.arange(keys.size), None
+    order = np.argsort(first)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    return first[order], rank[inverse.reshape(-1)]
+
+
+def _law_tensors(lowered, cell_qs, general, device):
+    """What `cell_tc` takes for a grid's distinct laws (`cell_laws`):
+    (pol, qs, law_of_cell) on `device`.  `pol` holds the lowered rows of the
+    laws (the single-fork program's (k, r, keep) columns unless `general`),
+    `qs` each law's q (None off the faulty path), `law_of_cell` each cell's
+    law (None where no law repeats)."""
+    reps, law_of_cell = cell_laws(lowered, cell_qs)
+
+    def t(v):
+        return torch.as_tensor(v, device=device)
+
+    if general:
+        pol = tuple(t(v[reps]) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
+    else:
+        pol = (None, t(lowered.k[reps, 0]), None, t(lowered.r[reps, 0]), t(lowered.keep[reps, 0]), None)
+    qs = None
+    if cell_qs is not None:
+        qs = torch.tensor([float(cell_qs[i]) for i in reps], dtype=torch.float32, device=device)
+    return pol, qs, None if law_of_cell is None else t(law_of_cell)
 
 
 def _eval_cells(
@@ -724,7 +769,8 @@ def _eval_cells(
     """Shared engine behind `frontier` and `policy_search`: one stats dict
     per (policy, λ) cell, all cells on one shared draw set.  `cell_qs` (one
     per cell, with the retry-draw width `attempts`) routes the grid through
-    the faulty program.  `cell_chunk` sets the cells evaluated together
+    the faulty program.  Each distinct (T, C) law of the grid (`cell_laws`)
+    is evaluated once; `cell_chunk` sets the laws evaluated together
     (default: as many as `CELL_CHUNK_BYTES` allows); it changes no result.
     `pad_cells` is the reference's compile-sharing pad and is ignored: only
     the real cells are evaluated.  `tail="exact"` computes the percentile
@@ -738,8 +784,9 @@ def _eval_cells(
     `chunk`) up to its last row, holding `frontier.prepare` and
     `frontier.rows` (cat "host"), `evaluator` (`cell_tc`), `stats` (with
     `batched_queue`'s `queue`) and `tails`; it adds its cells to the
-    counter `frontier.cells` (the evaluator adds those it evaluates to
-    `evaluator.cells`), and its distinct (T, C) laws to `evaluator.laws`."""
+    counter `frontier.cells` and its distinct (T, C) laws to
+    `evaluator.laws` (the evaluator adds the laws it evaluates to
+    `evaluator.cells`)."""
     rec = get_recorder()
     dev = resolve_device(device)
     with rec.section("frontier_dispatch", "engine", root=True, cells=len(cell_policies),
@@ -769,42 +816,27 @@ def _eval_cells(
             if (lowered.k < 0).any() or (lowered.k > n).any() or (lowered.r < 0).any():
                 raise ValueError("lowered fork indices must lie in [0, n] and replica counts >= 0")
             lams = torch.tensor([float(lam) for lam in cell_lams], dtype=torch.float32, device=dev)
-            qs = None
             if cell_qs is not None:
                 if len(cell_qs) != n_cells:
                     raise ValueError("need one q per cell")
                 if attempts is None or attempts < 1:
                     raise ValueError("cell_qs needs attempts >= 1")
-                qs = torch.tensor([float(q) for q in cell_qs], dtype=torch.float32, device=dev)
-
-            def t(v):
-                return torch.as_tensor(v, device=dev)
-
             # grids wholly in the single-stage-quantile/full-width domain take the
             # single-fork evaluator; anything else the general lowered evaluator
             general = lowered.multi_stage or lowered.has_time or lowered.has_group
-            if general:
-                pol = tuple(
-                    t(v) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d)
-                )
-            else:
-                pol = (None, t(lowered.k[:, 0]), None, t(lowered.r[:, 0]), t(lowered.keep[:, 0]), None)
+            # each distinct (T, C) law is evaluated once; cells take theirs
+            pol, qs, law_of_cell = _law_tensors(lowered, cell_qs, general, dev)
             if cell_chunk is None:
                 cell_chunk = cell_chunk_size(
                     m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None
                 )
             if rec.enabled:
-                root.note(tail="exact" if hist is None else "hist", chunk=cell_chunk)
+                n_laws = pol[1].shape[0]
+                root.note(tail="exact" if hist is None else "hist", chunk=cell_chunk, laws=n_laws)
                 rec.count("frontier.cells", n_cells)
-
-                def laws():  # counted when the recorder is read, outside the timed call
-                    n_laws = _distinct_laws(cell_policies, lowered, cell_qs)
-                    root.note(laws=n_laws)
-                    rec.count("evaluator.laws", n_laws)
-
-                rec.later(laws)
+                rec.count("evaluator.laws", n_laws)
         stats, soj, cost = _frontier_cells(
-            _generator(seed, dev), xs, pol, lams, qs, speeds, slot_class, class_slots, dist,
+            _generator(seed, dev), xs, pol, lams, qs, law_of_cell, speeds, slot_class, class_slots, dist,
             n, n_jobs, m_trials, r_cap, lowered.n_stages, attempts, kernel, cell_chunk,
         )
         with rec.section("tails", "engine"):

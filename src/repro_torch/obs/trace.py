@@ -184,12 +184,10 @@ class Recorder:
         self._spans: list[Span] = []
         self.instants: list[Instant] = []
         self.samples: list[CounterSample] = []
-        self._counters: dict[str, float] = {}
+        self.counters: dict[str, float] = {}
         self._open: list[_Section] = []
-        # closed sections not yet made spans, and work for args and counts
-        # put off (`later`): a recording's host cost is paid when it is read
+        # closed sections not yet made spans: made when the spans are read
         self._closed: list[_Section] = []
-        self._later: list = []
         self._ids = itertools.count(1)
         self.process_names: dict[int, str] = {
             PID_FLEET: "fleet.scheduler",
@@ -202,7 +200,6 @@ class Recorder:
     @property
     def spans(self) -> list[Span]:
         """Every span in the order it closed, closed sections included."""
-        self._settle()
         if self._closed:
             self._spans.extend(s.span() for s in self._closed)
             self._closed.clear()
@@ -225,25 +222,8 @@ class Recorder:
                        pid: int = PID_FLEET) -> None:
         self.samples.append(CounterSample(name, float(ts), float(value), pid))
 
-    @property
-    def counters(self) -> dict[str, float]:
-        self._settle()
-        return self._counters
-
     def count(self, name: str, amount: float = 1.0) -> None:
-        self._counters[name] = self._counters.get(name, 0.0) + amount
-
-    def later(self, fn) -> None:
-        """Call `fn()` when the spans or counters are next read: host work
-        that only works out a value to record (a section's args, a count),
-        kept out of the code the sections time."""
-        self._later.append(fn)
-
-    def _settle(self) -> None:
-        while self._later:
-            later, self._later = self._later, []
-            for fn in later:
-                fn()
+        self.counters[name] = self.counters.get(name, 0.0) + amount
 
     def name_process(self, pid: int, name: str) -> None:
         self.process_names[pid] = name
@@ -263,7 +243,6 @@ class Recorder:
         return [s for s in self.spans if s.name == name]
 
     def clear(self) -> None:
-        self._later.clear()
         self.spans.clear()
         self.instants.clear()
         self.samples.clear()
@@ -308,9 +287,6 @@ class NullRecorder:
 
     def section(self, *a, **k) -> _NullSection:
         return _NULL_SECTION
-
-    def later(self, *a, **k) -> None:
-        pass
 
     def spans_named(self, name: str) -> list:
         return []

@@ -786,7 +786,7 @@ def test_sections_hold_their_kernels_in_a_profiler_trace_on_card(monkeypatch):
     x = np.random.default_rng(0).exponential(1.0, 500) + 1.0
     pols = [SingleForkPolicy(0.1, 1, True), SingleForkPolicy(0.2, 1, False)]
 
-    monkeypatch.setattr(vector, "cell_chunk_size", lambda *a, **k: 2)  # 4 cells: 2 chunks
+    monkeypatch.setattr(vector, "cell_chunk_size", lambda *a, **k: 1)  # 4 cells, 2 laws: 2 chunks
 
     def call():
         return vector.frontier(x, pols, (0.1, 0.2), 40, 256, m_trials=4, c=2, device=dev)

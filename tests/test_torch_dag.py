@@ -184,7 +184,37 @@ def test_frontier_dispatch_span_and_cells_counter():
     assert [s.args["tail"] for s in spans] == ["exact", "hist"]
     assert [s.args["cells"] for s in spans] == [2, 1]
     assert all(s.pid == obs.PID_PROFILER and s.dur >= 0 for s in spans)
-    assert rec.counters == {"frontier.cells": 3.0, "evaluator.cells": 3.0, "evaluator.laws": 2.0}
+    # one law a call: the evaluator evaluates the two loads' shared law once
+    assert rec.counters == {"frontier.cells": 3.0, "evaluator.cells": 2.0, "evaluator.laws": 2.0}
+
+
+@pytest.mark.parametrize("program", ["single_fork", "lowered", "faulty"])
+def test_stage_laws_change_no_dag_row_and_are_what_the_evaluator_counts(monkeypatch, program):
+    """Each stage evaluates its distinct laws (its policy, and q) once: the
+    map stage's two or three policies, the reduce stage's one, times the
+    two q on the faulty path.  Every cell evaluated on its own (the law
+    index forced to the identity) gives the same rows."""
+    dag, vecs = _stages(tcore, "two_stage")
+    kw, laws = {}, [2, 1]
+    if program == "lowered":
+        vecs, laws = vecs + [(tcore.delayed_relaunch(2.0, 1), tcore.BASELINE)], [3, 1]
+    if program == "faulty":
+        kw, laws = dict(fault=[FaultSpec(q=0.1, max_attempts=3), FaultSpec(q=0.2, max_attempts=3)]), [4, 2]
+
+    def call():
+        return tdag.dag_frontier(dag, vecs, (0.1, 0.2), 60, m_trials=4, seed=3, device=CPU, **kw)
+
+    rec = obs.enable(obs.Recorder())
+    try:
+        rows = call()
+    finally:
+        obs.disable()
+    evaluators = rec.spans_named("evaluator")
+    assert [s.args["laws"] for s in evaluators] == laws
+    assert all(s.args["cells"] == len(rows) for s in evaluators)
+    assert rec.counters == {"evaluator.cells": sum(laws)}
+    monkeypatch.setattr(vector, "cell_laws", lambda lowered, cell_qs=None: (np.arange(lowered.k.shape[0]), None))
+    assert call() == rows
 
 
 # ---------------------------------------- critical path on shared arrays

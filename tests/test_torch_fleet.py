@@ -23,6 +23,7 @@ from repro.faults import FaultSpec as JFaultSpec
 from repro.fleet import MachineClass as JMachineClass
 from repro.fleet import vector as jv
 from repro_torch import core as tcore
+from repro_torch import obs
 from repro_torch.faults import FaultSpec
 from repro_torch.fleet import MachineClass, vector
 
@@ -209,6 +210,112 @@ def test_cell_chunk_size_changes_no_result(kind):
     one_by_one = vector._eval_cells(*args, device=CPU, cell_chunk=1, **kw)
     assert whole == one_by_one
     assert vector.cell_chunk_size(8, 100, N, 2, 1, kind == "general") >= len(cells)
+
+
+LAMS4 = (0.05, 0.1, 0.15, 0.2)
+
+
+def _law_grid(kind):
+    """(policies, frontier kwargs) of a grid whose laws repeat across λ."""
+    if kind == "general":
+        return POLICIES + _mixed(tcore), {}
+    if kind == "faulty":  # q fastest: q is part of the law
+        return POLICIES, dict(fault=[FaultSpec(q=0.1, max_attempts=3), FaultSpec(q=0.3, max_attempts=3)])
+    if kind == "twins":  # a single-fork policy and its algebra twin lower to one row: one law
+        return (POLICIES[1], tcore.as_fork_policy(POLICIES[1])), {}
+    return POLICIES, {}
+
+
+def _each_cell_its_own_law(lowered, cell_qs=None):
+    return np.arange(lowered.k.shape[0]), None
+
+
+@pytest.mark.parametrize("kind", ["single_fork", "general", "faulty", "twins"])
+def test_each_load_of_a_frontier_is_the_frontier_at_that_load_alone(kind):
+    """(T, C) does not depend on λ, and the draws and the base arrivals are
+    the same whatever the loads: each λ's rows of a four-load frontier
+    equal that λ's frontier alone, float for float."""
+    pols, kw = _law_grid(kind)
+    nq = len(kw.get("fault", [None]))
+    whole = _front(pols, LAMS4, c=2, **kw)
+    assert len(whole) == len(pols) * len(LAMS4) * nq
+    for j, lam in enumerate(LAMS4):
+        alone = _front(pols, (lam,), c=2, **kw)
+        assert [whole[(p * len(LAMS4) + j) * nq + i] for p in range(len(pols)) for i in range(nq)] == alone
+
+
+@pytest.mark.parametrize("kind", ["single_fork", "general", "faulty", "twins"])
+def test_evaluating_each_law_once_changes_no_row(monkeypatch, kind):
+    """Every cell evaluated on its own (the law index forced to the
+    identity) gives the rows of the grid evaluated law by law."""
+    pols, kw = _law_grid(kind)
+    by_law = _front(pols, LAMS4, c=2, **kw)
+    monkeypatch.setattr(vector, "cell_laws", _each_cell_its_own_law)
+    assert _front(pols, LAMS4, c=2, **kw) == by_law
+
+
+def test_cell_laws_key_the_lowered_rows_and_q_in_order_of_first_appearance():
+    cells = [p for p in POLICIES for _ in LAMS4]
+    reps, law_of_cell = vector.cell_laws(tcore.lower_policies(cells, N))
+    assert reps.tolist() == [0, 4, 8] and law_of_cell.tolist() == [i // 4 for i in range(12)]
+    # a grid with no repeated law: every cell its own, no index to gather by
+    reps, law_of_cell = vector.cell_laws(tcore.lower_policies(list(POLICIES), N))
+    assert reps.tolist() == [0, 1, 2] and law_of_cell is None
+    qs = [0.1, 0.3, 0.1, 0.3]
+    twins = [POLICIES[2], POLICIES[2], tcore.as_fork_policy(POLICIES[2]), POLICIES[1]]
+    reps, law_of_cell = vector.cell_laws(tcore.lower_policies(twins, N), qs)
+    assert reps.tolist() == [0, 1, 3] and law_of_cell.tolist() == [0, 1, 0, 2]
+
+
+def _law_pol(lowered, rows, general):
+    t = torch.as_tensor
+    if general:
+        return tuple(t(v[rows]) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
+    return (None, t(lowered.k[rows, 0]), None, t(lowered.r[rows, 0]), t(lowered.keep[rows, 0]), None)
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_cell_tc_gives_each_cell_its_laws_tc(general):
+    """`cell_tc` with a law index: the cells of one law are equal to each
+    other, to that law's row of a call on the distinct laws alone, and to a
+    call that evaluates every cell, on the same draws."""
+    pols = list(POLICIES + (_mixed(tcore) if general else ()))
+    cells = [p for p in pols for _ in LAMS4]
+    lowered = tcore.lower_policies(cells, N)
+    reps, law_of_cell = vector.cell_laws(lowered)
+    assert len(reps) == len(pols)
+
+    def call(rows, index):
+        g = torch.Generator().manual_seed(11)
+        return vector.cell_tc(g, DIST.quantile, _law_pol(lowered, rows, general), None, (4, 50), N,
+                              lowered.r_max + 1, lowered.n_stages if general else 1, None, 2, index)
+
+    T, C = call(reps, torch.as_tensor(law_of_cell))
+    T_laws, C_laws = call(reps, None)
+    T_cells, C_cells = call(np.arange(len(cells)), None)
+    assert T.shape == C.shape == (len(cells), 4, 50) and T_laws.shape[0] == len(pols)
+    for i, law in enumerate(law_of_cell.tolist()):
+        assert torch.equal(T[i], T_laws[law]) and torch.equal(C[i], C_laws[law])
+    assert torch.equal(T, T_cells) and torch.equal(C, C_cells)
+
+
+def test_every_call_evaluates_its_own_laws():
+    """No law is kept from one call to the next: two calls on one grid with
+    other seeds each record chunks summing to their own law count, and
+    their rows differ."""
+    rec = obs.enable(obs.Recorder())
+    try:
+        rows = [vector.frontier(DIST, POLICIES, LAMS4, N, 100, m_trials=8, seed=seed, c=2, device=CPU)
+                for seed in (5, 6)]
+    finally:
+        obs.disable()
+    roots = rec.spans_named("frontier_dispatch")
+    assert len(roots) == 2
+    for root in roots:
+        chunks = [s for s in rec.spans if s.name == "evaluator.chunk" and s.args["query"] == root.args["id"]]
+        assert root.args["laws"] == sum(s.args["cells"] for s in chunks) == len(POLICIES)
+    assert rec.counters["evaluator.cells"] == 2 * len(POLICIES)
+    assert rows[0] != rows[1]
 
 
 def test_pad_cells_changes_no_result():

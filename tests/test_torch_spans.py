@@ -3,9 +3,10 @@ the CPU.
 
 One `frontier` call is one root section `frontier_dispatch`; every section
 inside it names the root as its `query` and the section it was opened in
-as its `parent`.  The counters `evaluator.cells` and `evaluator.laws`
-count the cells evaluated and their distinct (T, C) laws (λ changes no
-law, and two policies that lower to one row are one law).  Recording
+as its `parent`.  The evaluator evaluates each distinct (T, C) law of a
+grid once (λ changes no law, and two policies that lower to one row are
+one law): its chunks' `cells` and the counter `evaluator.cells` count the
+laws it evaluates, and `evaluator.laws` the grid's laws.  Recording
 changes no row.  Sections stamp the epoch clock that torch.profiler's
 Chrome export reaches with `baseTimeNanoseconds`.
 """
@@ -71,9 +72,9 @@ def test_one_frontier_call_is_one_tree_of_sections(rec, monkeypatch, grid):
     root, spans = _query(rec)
     assert len(spans) == len(rec.spans)  # nothing outside the query
     assert root.args["parent"] is None and root.args["query"] == root.args["id"]
-    cells = len(policies) * len(lams)
-    assert {k: root.args[k] for k in ("cells", "m_trials", "n_jobs", "tail", "chunk")} == dict(
-        cells=cells, m_trials=M_TRIALS, n_jobs=N_JOBS, tail="exact", chunk=3)
+    cells, laws = len(policies) * len(lams), len(policies)
+    assert {k: root.args[k] for k in ("cells", "laws", "m_trials", "n_jobs", "tail", "chunk")} == dict(
+        cells=cells, laws=laws, m_trials=M_TRIALS, n_jobs=N_JOBS, tail="exact", chunk=3)
     assert "padded" not in root.args
     by_id = {s.args["id"]: s for s in spans}
     assert len(by_id) == len(spans)
@@ -87,8 +88,10 @@ def test_one_frontier_call_is_one_tree_of_sections(rec, monkeypatch, grid):
     names = [s.name for s in spans]
     assert sorted(set(names)) == sorted({"frontier_dispatch", *PARENT})
     chunks = [s for s in spans if s.name == "evaluator.chunk"]
-    assert len(chunks) == math.ceil(cells / 3)
-    assert sum(s.args["cells"] for s in chunks) == cells
+    assert len(chunks) == math.ceil(laws / 3)  # each law once, 3 a chunk
+    assert sum(s.args["cells"] for s in chunks) == laws
+    (evaluator,) = rec.spans_named("evaluator")
+    assert (evaluator.args["cells"], evaluator.args["laws"]) == (cells, laws)
     assert {s.args["path"] for s in chunks} == {"masked" if grid == "single" else "lowered"}
     (queue,) = rec.spans_named("queue")
     assert queue.args["rows"] == cells * M_TRIALS and queue.args["jobs"] == N_JOBS
@@ -107,7 +110,7 @@ def test_the_evaluator_counts_its_cells_and_their_distinct_laws(rec, grid, cells
         _front([SINGLE[2], tcore.as_fork_policy(SINGLE[2])], LAMS2)
     else:  # 2 policies x 2 loads x 2 q: q is part of the law
         _front(SINGLE[1:3], LAMS2, fault=[FaultSpec(q=0.1, max_attempts=3), FaultSpec(q=0.2, max_attempts=3)])
-    assert rec.counters == {"frontier.cells": cells, "evaluator.cells": cells, "evaluator.laws": laws}
+    assert rec.counters == {"frontier.cells": cells, "evaluator.cells": laws, "evaluator.laws": laws}
     root, _ = _query(rec)
     assert (root.args["cells"], root.args["laws"]) == (cells, laws)
 
@@ -143,9 +146,11 @@ def test_sections_outside_a_frontier_have_no_query(rec):
     assert "frontier_dispatch" not in names
     assert all(s.args["query"] is None for s in rec.spans)
     assert {rec.spans[0].name} <= {"evaluator.draws", "evaluator.chunk"}  # children close first
-    # the evaluator counts the cells it evaluates for the DAG too; laws are the frontier's
-    evaluated = sum(s.args["cells"] for s in rec.spans_named("evaluator"))
-    assert evaluated > 0 and rec.counters == {"evaluator.cells": evaluated}
+    # the evaluator counts the laws it evaluates for the DAG too: the map stage's two
+    # policies and the reduce stage's one; the grid's laws are the frontier's count
+    evaluated = sum(s.args["laws"] for s in rec.spans_named("evaluator"))
+    assert evaluated == 3 and rec.counters == {"evaluator.cells": evaluated}
+    assert sum(s.args["cells"] for s in rec.spans_named("evaluator.chunk")) == evaluated
     # a root opened later starts its own query and leaves these as they were
     _front(SINGLE[:2], LAMS2)
     root = rec.spans_named("frontier_dispatch")[0]
