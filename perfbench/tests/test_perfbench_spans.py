@@ -13,9 +13,9 @@ from bench import spans, spec
 from repro_torch import obs
 
 NEW = ("span_evaluator_ms", "span_draws_ms", "span_eval_chunks_ms", "span_queue_ms", "span_stats_ms",
-       "span_host_ms", "evaluator_distinct_pct")
-#: distinct (T, C) laws over cells: 8 policies x 4 loads, 4 policies x 2 loads
-DISTINCT = {"job1.frontier": 25.0, "job1.general": 50.0}
+       "span_host_ms", "span_tails_host_ms", "evaluator_distinct_pct")
+#: the evaluator runs each distinct (T, C) law once: every cell's grid reads 100
+DISTINCT = {"job1.frontier": 100.0, "job1.general": 100.0}
 
 
 @pytest.mark.parametrize("name", pbtest.CELLS)
@@ -26,6 +26,7 @@ def test_a_traced_run_reads_the_programs_spans(name):
     assert set(NEW) <= set(got)
     assert all(math.isfinite(got[k]) and got[k] >= 0 for k in NEW)
     assert got["span_draws_ms"] + got["span_eval_chunks_ms"] <= got["span_evaluator_ms"]
+    assert got["span_tails_host_ms"] > 0
     assert got["evaluator_distinct_pct"] == DISTINCT[name]
     units = {m["name"]: m["unit"] for m in spec.benchmark()["per_layer"]}
     assert all(line["metrics"][k]["unit"] == units[k] for k in NEW)
