@@ -19,6 +19,12 @@ JAX package.  Phases, one JSON line each:
             shape and mamba2-2.7b's geometry at 1024 and 4096 tokens (each
             on the Hopper kernel, timed in turns with the mma_sync kernel on
             the same inputs, with the clusters the card holds at once);
+            single_job at the benchmark's two grids (job1.frontier's 8
+            single-fork laws, job1.general's 4 lowered laws) and phase
+            paper's cross-family grid (9 laws, group widths 6 and 2; 2048
+            jobs x 16 trials of 1026 tasks), T bit-equal and C within 1e-6
+            of its PyTorch chains, timed in turns with them, beside the
+            bytes its laws need (`single_job_bytes`);
             every case naming its kernel path
   frontier  `frontier` on the Job 1 trace at full width: n=1026 tasks,
             c=4 gang blocks, 2048 jobs × 16 trials, 8 policies × 4 loads
@@ -195,8 +201,11 @@ read just after), kw_queue from the controller's drill
 (phase `fleet_adaptive`), kw_queue, flash_attention and ssd_scan from
 fleet-backed serving (phase `fleet_serve`) and ssd_scan from the SSM serve
 path (phase `serve_ssm`), each set to 0 just before its phase and read
-just after.  The calls made only to compare with them (the
-kernels against their plain versions, the reference `frontier` of
+just after; single_job's by the phase that launched them (the line
+`launches`, key `single_job_by_phase`), and beside them the engines'
+evaluator calls that kept the PyTorch chains on the card, with their n,
+stages and laws (key `single_job_chain_by_phase`).  The calls made only to compare
+with them (the kernels against their plain versions, the reference `frontier` of
 `dag_one_stage`, the rollouts that give the order statistics, the
 single-fork grid of `dag_general`, kw_queue at its gate's shape, the re-plans' queues against
 kw_queue_plain, the first re-plan on the CPU, the profiled search, the
@@ -468,6 +477,37 @@ def record_kw_launches():
     return unwrap
 
 
+#: every call of the engines' single-job evaluator (`cell_tc`) that kept
+#: the PyTorch chains on a card, as (n, S, laws): `record_single_job_chain`
+#: makes them, `uncounted()` drops the records of its block
+SINGLE_CHAIN: list = []
+
+
+def record_single_job_chain():
+    """Wraps `cell_tc` where the engines call it (`fleet.vector`,
+    `dag.rollout`) so that each call on a card that keeps the PyTorch
+    chains (`fused_path` false: n or S beyond the single-job kernel)
+    appends its (n, S, laws) to SINGLE_CHAIN.  Returns the function that
+    unwraps it."""
+    from repro_torch.dag import rollout
+    from repro_torch.fleet import vector
+
+    inner = vector.cell_tc
+
+    def recorded(g, quantile, pol, qs, shape, n, r_cap, n_stages, *args, **kwargs):
+        S = 1 if pol[0] is None else n_stages
+        if g.device.type == "cuda" and not vector.fused_path(g.device, n, S):
+            SINGLE_CHAIN.append((n, S, int(pol[1].shape[0])))
+        return inner(g, quantile, pol, qs, shape, n, r_cap, n_stages, *args, **kwargs)
+
+    vector.cell_tc = rollout.cell_tc = recorded
+
+    def unwrap():
+        vector.cell_tc = rollout.cell_tc = inner
+
+    return unwrap
+
+
 def kw_queue_shapes(records) -> list:
     """The distinct (phase, B, J, c) of kw_queue launch records, with their
     launches by path, in order of first launch."""
@@ -486,10 +526,11 @@ def uncounted():
     calls made only to compare a path with its reference."""
     from repro_torch.kernels import ops
 
-    kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)
+    kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan, ops.single_job)
     saved = [k.launches for k in kernels]
     by_path = {k: dict(k.launches_by_path) for k in (ops.kw_queue, ops.flash_attention, ops.ssd_scan)}
     n_kw = len(KW_LAUNCHES)
+    n_chain = len(SINGLE_CHAIN)
     try:
         yield
     finally:
@@ -498,6 +539,7 @@ def uncounted():
         for k, paths in by_path.items():
             k.launches_by_path = paths
         del KW_LAUNCHES[n_kw:]
+        del SINGLE_CHAIN[n_chain:]
 
 
 def reset_kw() -> None:
@@ -582,6 +624,132 @@ def job1_trace():
     return x / np.mean(x)  # mean 1, as fleet.trace_workload normalises
 
 
+def single_job_grid(torch, device, sizes, kind, seed=20261018):
+    """(the arguments of `single_job`, ranked) for a grid on Job 1's trace
+    at sizes n, n_jobs, m_trials: the benchmark's (perfbench/traffic)
+    "frontier", POLICIES, and "general", the baseline, delayed relaunch at 2
+    (kill) and 3 (keep, r 1) and a two-stage fork; and "cross", phase
+    paper's cross-family grid (`paper_cross_policies`) with group widths n
+    // 171 and 2 (6 and 2 at n = 1026; the paper's 5 does not divide 1026).
+    Drawn as the engine draws them (`fork_draws` or `policy_draws`, then
+    `running_min`)."""
+    from repro_torch import core as tcore
+    from repro_torch.core.simulate import policy_draws, running_min
+    from repro_torch.fleet import vector
+
+    n, shape = sizes["n"], (sizes["m_trials"], sizes["n_jobs"])
+    xs = torch.sort(torch.as_tensor(job1_trace(), dtype=torch.float32, device=device)).values
+    q = lambda u: vector.emp_quantile(xs, u)  # noqa: E731
+    if kind == "frontier":
+        pols = [tcore.SingleForkPolicy(*p) for p in POLICIES]
+    elif kind == "general":
+        pols = [tcore.BASELINE, tcore.delayed_relaunch(2.0, r=0, keep=False),
+                tcore.delayed_relaunch(3.0, r=1, keep=True), tcore.MultiForkPolicy(((0.4, 1, True), (0.1, 1, False)))]
+    else:
+        pols = [tcore.group_replication(0.2, 1, n // 171) if getattr(p.where, "d", None) == 5
+                else tcore.group_replication(0.3, 1, 2) if getattr(p.where, "d", None) == 2 else p
+                for p in map(tcore.as_fork_policy, paper_cross_policies(tcore))]
+    lowered = tcore.lower_policies(pols, n)
+    g = torch.Generator(device=device).manual_seed(seed)
+    r_cap = lowered.r_max + 1
+    if kind == "frontier":
+        x, fresh = vector.fork_draws(g, q, shape, n, r_cap)
+        cm = running_min(fresh)[None].unsqueeze(-3)
+    else:
+        x, fresh = policy_draws(g, q, shape, n, r_cap, lowered.n_stages)
+        cm = running_min(fresh)[None]
+    stages = tuple(torch.as_tensor(v, device=device) for v in (lowered.mode, lowered.k, lowered.t, lowered.r,
+                                                                lowered.keep, lowered.d))
+    return (x[None], cm) + stages, kind == "frontier"
+
+
+def single_job_bytes(torch, args, ranked) -> int:
+    """The bytes `single_job` has to move for its laws on shared draws: x
+    read once, T and C written, and of cm (contiguous, 32-byte sectors of 8
+    floats) every sector that holds a column some law reads at one of its
+    stragglers' positions.  A quantile stage's stragglers are the positions
+    whose rank within their group is >= k; a time stage's, where it is a
+    law's first active stage, the positions whose group-sorted draw is > t,
+    and at a later stage every position (more than it reads)."""
+    x, cm, mode, k, t, r, keep, d = args
+    L, S = mode.shape
+    n = x.shape[-1]
+    rows = x[0].numel() // n
+    assert x.shape[0] == 1 and cm.shape[0] == 1, "shared draws"
+    read = torch.zeros(cm.shape[1:], dtype=torch.bool, device=cm.device)
+    pos = torch.arange(n, device=x.device)
+    for law in range(L):
+        dl = int(d[law])
+        grouped = x[0] if ranked else torch.sort(x[0].unflatten(-1, (n // dl, dl)), dim=-1).values.flatten(-2)
+        first = True
+        for s in range(S):
+            m, kl, rl = int(mode[law, s]), int(k[law, s]), int(r[law, s])
+            if m == -1 or (m == 0 and kl >= dl):
+                continue
+            col = rl - 1 if bool(keep[law, s]) else rl
+            if m == 0:
+                strag = pos % dl >= kl
+            elif first:
+                strag = grouped > float(t[law, s])
+            else:
+                strag = torch.ones_like(pos, dtype=torch.bool)
+            first = False
+            if col >= 0:
+                read[..., s, :, col] |= strag
+    flat = read.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    sectors = int(flat.view(-1, 8).any(dim=1).sum())
+    return x.numel() * 4 + sectors * 32 + 2 * L * rows * 4
+
+
+def single_job_chains(torch, args, ranked, laws=4):
+    """`single_job_plain` on `laws` laws at a time, as the engine chunks the
+    chains (their per-law intermediates are about 4.5 GB a law at full
+    size): (T, C) of every law."""
+    from repro_torch.kernels.single_job import single_job_plain
+
+    x, cm, rest = args[0], args[1], args[2:]
+    parts = [single_job_plain(x, cm, *(v[i:i + laws] for v in rest), ranked=ranked)
+             for i in range(0, rest[0].shape[0], laws)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def single_job_kernel_cases(torch, device, sizes, flush) -> list:
+    """The single-job kernel against its chains (`single_job_plain`) at the
+    benchmark's two grids and phase paper's cross-family grid (group
+    selection): T bit-equal, C's largest relative gap within 1e-6, both
+    timed in turns on the same inputs, and the byte bound
+    (`single_job_bytes`)."""
+    from repro_torch.kernels.single_job import single_job
+
+    cases = []
+    for kind in ("frontier", "general", "cross"):
+        args, ranked = single_job_grid(torch, device, sizes, kind)
+        with uncounted():
+            T, C = single_job(*args, ranked=ranked)
+        T_p, C_p = single_job_chains(torch, args, ranked)
+        check(torch.equal(T, T_p), f"single_job {kind}: T bit-equal to the chain")
+        gap = float(((C.double() - C_p.double()).abs() / C_p.double().abs()).max())
+        check(gap <= 1e-6, f"single_job {kind}: C within 1e-6 of the chain ({gap:.3e})")
+        err = float((C - C_p).abs().max())
+        del T_p, C_p
+        with uncounted():
+            times = time_turns(torch, {"kernel": lambda: single_job(*args, ranked=ranked),
+                                       "plain": lambda: single_job_chains(torch, args, ranked)},
+                               sizes["kernel_reps"], device, flush)
+        x, cm = args[:2]
+        L, S = args[2].shape
+        moved = single_job_bytes(torch, args, ranked)
+        cases.append(dict(
+            grid=kind, laws=L, stages=S, widths=sorted(set(args[-1].tolist())), rows=x[0].numel() // x.shape[-1],
+            n=x.shape[-1], r_cap=cm.shape[-1], ranked=ranked, max_abs_err=err, C_max_rel_gap=gap,
+            ms=times["kernel"], plain_ms=times["plain"], library_ms=None, bytes=moved,
+            all_of_cm_ms=(x.numel() + cm.numel()) * 4 / HBM_BYTES_PER_S * 1e3, bound=bound(moved, 0),
+        ))
+        del args, x, cm, T, C
+    return cases
+
+
 def kw_inputs(torch, device, g, B, J, speeds, load):
     """(arrivals, services, speeds) of B queues of J jobs at offered `load`
     of the slots' speed: services 0.5 + Exp(1), Poisson arrivals."""
@@ -630,17 +798,20 @@ def phase_kernels(torch, device, sizes) -> dict:
     )
     flash = flash_kernel_cases(torch, device, sizes, g, flush)
     ssd = ssd_kernel_cases(torch, device, sizes, g, flush)
-    for case in (res_case, *flash, *ssd):
+    single = single_job_kernel_cases(torch, device, sizes, flush)
+    for case in (res_case, *flash, *ssd, *single):
         if "bound" in case:
             case["bound_ms"], case["bound_by"] = case.pop("bound")
     emit("kernels", kw_queue=kw_cases, residual_sample=res_case, flash_attention=flash,
-         ssd_scan=ssd,
+         ssd_scan=ssd, single_job=single,
          tolerance=dict(kw_queue="bit-equal (torch.equal on all four outputs), every kernel path",
                         residual_sample="max exact, sum rtol 1e-5",
                         flash_attention="rtol=atol 2e-5 float32, 2e-2 bfloat16",
-                        ssd_scan="rtol=atol 1e-3 float32; atol 2e-1, rtol 5e-2 bfloat16"))
+                        ssd_scan="rtol=atol 1e-3 float32; atol 2e-1, rtol 5e-2 bfloat16",
+                        single_job="T bit-equal, C rtol 1e-6"))
     return dict(kw_queue=kw_cases[0] | {"max_abs_err": max(c["max_abs_err"] for c in kw_cases)},
-                residual_sample=res_case, flash_attention=flash[0], ssd_scan=ssd[0])
+                residual_sample=res_case, flash_attention=flash[0], ssd_scan=ssd[0],
+                single_job=single[0] | {"max_abs_err": max(c["max_abs_err"] for c in single)})
 
 
 def _close(torch, got, want, rtol, atol, what) -> float:
@@ -3235,6 +3406,7 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
 
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.residual_sampler import residual_sample
+    from repro_torch.kernels.single_job import single_job
 
     device = torch.device(device_name)
     if device.type == "cuda":
@@ -3245,6 +3417,17 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     unwrap_kw = record_kw_launches()
     measured = phase_kernels(torch, device, sizes)
     kw_paths: dict = {}
+    # single_job's main-path launches, and the evaluator's calls that kept
+    # the chains on the card, by the phase that made them
+    single_paths: dict = {}
+    single_chain: dict = {}
+    single_at = [single_job.launches, len(SINGLE_CHAIN)]
+    unwrap_chain = record_single_job_chain()
+
+    def single_read(name: str) -> None:
+        single_paths[name] = single_job.launches - single_at[0]
+        single_chain[name] = SINGLE_CHAIN[single_at[1]:]
+        single_at[:] = [single_job.launches, len(SINGLE_CHAIN)]
 
     def kw_phase(name: str) -> None:
         """kw_queue's counters to 0; its launches recorded under `name`."""
@@ -3259,20 +3442,27 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     residual_sample.launches = 0
     main_path(torch, device, sizes)
     paths = {"frontier": {"kw_queue": kw_read("frontier"), "residual_sample": residual_sample.launches}}
+    single_read("frontier")
+    if device.type == "cuda":
+        check(single_paths["frontier"] > 0, "single_job launched on the frontier path")
     kw_phase("dag")
     dag_event = phase_dag(torch, device, sizes)
     paths["dag"] = {"kw_queue": kw_read("dag")}
+    single_read("dag")
     gates = dict(dag_event["gates"])
     kw_phase("fleet_gates")
     gates.update(phase_fleet_gates(torch, device, sizes))
     paths["fleet_gates"] = {"kw_queue": kw_read("fleet_gates")}
+    single_read("fleet_gates")
     kw_phase("dag_gates")
     gates.update(phase_dag_gates(torch, device, sizes, dag_event["race"]))
     paths["dag_gates"] = {"kw_queue": kw_read("dag_gates")}
+    single_read("dag_gates")
     del dag_event
     kw_phase("paper")
     phase_paper(torch, device, sizes)
     paths["paper"] = {"kw_queue": kw_read("paper")}
+    single_read("paper")
     flash_paths = {}
     reset_flash()
     KW_PHASE[0] = "serve_moe"
@@ -3288,8 +3478,10 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     KW_PHASE[0] = "serve"
     paths["serve"], flash_paths["serve"], ssd_paths["serve"], served = phase_serve(torch, device, sizes)
     kw_phase("fleet_adaptive")
+    single_read("serving")
     first_replan, adaptive_gates = phase_fleet_adaptive(torch, device, sizes)
     paths["fleet_adaptive"] = {"kw_queue": kw_read("fleet_adaptive")}
+    single_read("fleet_adaptive")
     gates.update(adaptive_gates)
     emit("fleet_gates", gates=gate_map(gates))
     kw_phase("fleet_serve")
@@ -3298,6 +3490,7 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     phase_fleet_serve(torch, device, sizes, served)
     paths["fleet_serve"] = {k: getattr(ops, k).launches for k in ("kw_queue", "flash_attention", "ssd_scan")}
     kw_read("fleet_serve")
+    single_read("fleet_serve")
     flash_paths["fleet_serve"] = dict(ops.flash_attention.launches_by_path)
     ssd_paths["fleet_serve"] = dict(ops.ssd_scan.launches_by_path)
     # one model on the card at a time: phase serve's goes unless --profile
@@ -3322,13 +3515,16 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
     phase_kw_queue_classes(torch, device, sizes, shapes)
     unwrap_kw()
     trained = phase_train(torch, device, sizes)
-    before = [k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)]
+    kernels = (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan, ops.single_job)
+    before = [k.launches for k in kernels]
     sharded = phase_sharded_train(torch, device, sizes)
     phase_dryrun(torch, sizes, sharded)
-    check([k.launches for k in (ops.kw_queue, ops.residual_sample, ops.flash_attention, ops.ssd_scan)] == before,
-          "the sharded step and the dry-run launched none of the four kernels")
+    check([k.launches for k in kernels] == before, "the sharded step and the dry-run launched none of the kernels")
+    unwrap_chain()
     emit("launches", **paths, kw_queue_by_path=kw_paths, flash_attention_by_path=flash_paths,
-         ssd_scan_by_path=ssd_paths)
+         ssd_scan_by_path=ssd_paths, single_job_by_phase={k: v for k, v in single_paths.items() if v},
+         single_job_chain_by_phase={k: [dict(n=n, stages=S, laws=L) for n, S, L in v]
+                                    for k, v in single_chain.items() if v})
     # torch.profiler only after every timed phase, so that no timing
     # follows a profiler session
     phase_fleet_adaptive_profile(torch, device, first_replan)
@@ -3349,12 +3545,14 @@ def run(device_name: str, sizes: dict, profile: bool = False) -> dict:
             if device.type == "cuda":
                 check(count > 0, f"{name} launched on the {path} path")
             launches[name] = launches.get(name, 0) + count
+    launches["single_job"] = sum(single_paths.values())
 
     meta = {
         "kw_queue": ("src/repro_torch/csrc/kw_queue.cu", "src/repro/kernels/kw_queue.py:82"),
         "residual_sample": ("src/repro_torch/csrc/residual_sampler.cu", "src/repro/kernels/residual_sampler.py:39"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:85"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:82"),
+        "single_job": ("src/repro_torch/csrc/single_job.cu", None),  # replaces no TPU kernel
     }
     by_path = {"kw_queue": kw_paths, "flash_attention": flash_paths, "ssd_scan": ssd_paths}
     table = {"kernels": [

@@ -146,6 +146,32 @@ def take_replica(cm: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
     return torch.gather(cm.expand(tuple(shape) + cm.shape[-1:]), -1, index)[..., 0]
 
 
+def _masked_cells(x_sorted, cm, k, r, keep):
+    """`fleet.vector.masked_single_fork` for C cells at once on shared draws.
+
+    x_sorted: (1 or C, B..., n); cm: (1 or C, B..., n, r_cap), the fresh
+    block already running-min'd over its replica axis; k, r, keep: (C,).
+    Returns (T, C), each (C, B...)."""
+    n = x_sorted.shape[-1]
+    shape = tuple(k.shape[:1]) + tuple(x_sorted.shape[1:])
+    nd = len(shape)
+    xs = x_sorted.expand(shape)
+    kc, rc, keepc = (_cell(v, nd) for v in (k, r, keep))
+    t1 = torch.gather(xs, -1, (kc - 1).long().expand(shape[:-1] + (1,)))[..., 0]
+    straggler = torch.arange(n, device=xs.device, dtype=torch.int32) >= kc
+    c1 = torch.where(straggler, 0.0, xs).sum(dim=-1) + (n - kc[..., 0]) * t1
+    fresh_keep = torch.where(
+        rc > 0, take_replica(cm, torch.clamp(r - 1, min=0), shape), torch.inf
+    )
+    fresh_kill = take_replica(cm, r, shape)  # min over the first r+1 draws
+    remaining = xs - t1[..., None]
+    y = torch.where(keepc, torch.minimum(remaining, fresh_keep), fresh_kill)
+    y = torch.where(straggler, y, 0.0)
+    T = t1 + y.amax(dim=-1)
+    C = (c1 + (rc[..., 0] + 1.0) * y.sum(dim=-1)) / n
+    return T, C
+
+
 def lowered_eval_cells(x, cm, mode, k, t, r, keep, d):
     """`lowered_policy_eval` for C cells at once on shared draws.
 

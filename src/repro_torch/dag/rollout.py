@@ -59,7 +59,6 @@ from ..fleet.vector import (
     as_quantile_source,
     batched_queue,
     _law_tensors,
-    cell_chunk_size,
     cell_tc,
     emp_quantile,
 )
@@ -108,7 +107,7 @@ def _stage_pols(dag: JobDAG, vecs, device, cell_qs=None):
     general = any(lp.multi_stage or lp.has_time or lp.has_group for lp in lps)
     return [
         _law_tensors(lp, cell_qs, general, device) + (lp.n_stages if general else 1,) for lp in lps
-    ], general
+    ]
 
 
 def _resolve_r_caps(dag: JobDAG, cell_vectors, r_caps):
@@ -145,7 +144,7 @@ def stage_queue(ready, T, c: int, kernel: bool = False, in_order: bool = False):
     return st, fi, sl
 
 
-def _compose(g, xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, general, attempts=None):
+def _compose(g, xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, attempts=None):
     """The stage-composed core: per-stage (cells, m, J) tensors.
 
     Stages advance in the DAG's validated topological order: each draws its
@@ -161,9 +160,7 @@ def _compose(g, xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, general
     for s, (n_s, c_s, preds, dist_s) in enumerate(plan):
         quantile = dist_s.quantile if dist_s is not None else partial(emp_quantile, xss[s])
         pol, qs, law_of_cell, n_stages = pols[s]
-        chunk = cell_chunk_size(m_trials, n_jobs, n_s, r_caps[s], n_stages, general,
-                                attempts if qs is not None else None)
-        T_s, C_s = cell_tc(g, quantile, pol, qs, shape, n_s, r_caps[s], n_stages, attempts, chunk,
+        T_s, C_s = cell_tc(g, quantile, pol, qs, shape, n_s, r_caps[s], n_stages, attempts, None,
                            law_of_cell)
         if arrivals is None:
             # after the first stage's draws, as the frontier draws them
@@ -294,10 +291,9 @@ def _eval_dag_cells(dag, cell_vectors, cell_lams, n_jobs, m_trials, seed, kernel
             raise ValueError("need one q per cell")
         if attempts is None or attempts < 1:
             raise ValueError("cell_qs needs attempts >= 1")
-    pols, general = _stage_pols(dag, cell_vectors, dev, cell_qs)
+    pols = _stage_pols(dag, cell_vectors, dev, cell_qs)
     paths = _compose(
-        _generator(seed, dev), xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel,
-        general, attempts=attempts,
+        _generator(seed, dev), xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, attempts=attempts,
     )
     stats, sojourn, cost = _dag_stats(*paths, lams, plan, sinks)
     del paths
@@ -477,10 +473,10 @@ def dag_rollout(
     vec = dag.validate_policy_vector(policies)
     plan, sinks, xss = _plan(dag, dev)
     r_caps = _resolve_r_caps(dag, [vec], r_caps)
-    pols, general = _stage_pols(dag, [vec], dev)
+    pols = _stage_pols(dag, [vec], dev)
     lams = torch.tensor([float(lam)], dtype=torch.float32, device=dev)
     arrivals, readys, starts, finishes, Ts, Cs = _compose(
-        _generator(seed, dev), xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, general,
+        _generator(seed, dev), xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel,
     )
     sojourn, attrs = _critical_attribution(arrivals, readys, finishes, plan, sinks)
 

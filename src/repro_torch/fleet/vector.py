@@ -15,6 +15,8 @@ cells on the device.
   * `masked_single_fork` evaluates single-fork cells with a dynamic fork
     point (k, r, keep enter as per-cell tensors, not shapes);
     `core.simulate.lowered_eval_cells` evaluates any other lowered policy;
+    on a card the engine's laws go through the CUDA kernel
+    `kernels.single_job` instead, where n and S fit it (`fused_path`);
   * `batched_queue` runs every (cell, trial) queue: c > 1 (or
     `kernel=True`) through the CUDA Kiefer–Wolfowitz kernel
     `kernels.kw_queue`, c = 1 through the closed-form `lindley`;
@@ -48,17 +50,19 @@ from ..core.distributions import Distribution, Empirical
 from ..core.policy import SingleForkPolicy, lower_policies, num_stragglers
 from ..core.simulate import (
     _cell,
+    _masked_cells,
     lowered_eval_cells,
     policy_draws,
     running_min,
     single_fork_batch,
-    take_replica,
 )
 from ..device import generator as _generator
 from ..device import resolve_device
 from ..kernels.kw_queue import kw_queue as kw_queue_kernel
 from ..kernels.kw_queue import kw_queue_plain
 from ..kernels.residual_sampler import residual_sample
+from ..kernels.single_job import fits as single_job_fits
+from ..kernels.single_job import single_job
 from ..obs.device import DEFAULT_HIST, HistSpec, cell_histograms, sketch_from_device
 from ..obs.evtail import evt_keys
 from ..obs.trace import get_recorder
@@ -367,32 +371,6 @@ def batched_queue(arrivals, services, speeds, kernel: bool = False):
         return starts, fins, svc, torch.zeros(arrivals.shape, dtype=torch.int32, device=arrivals.device)
 
 
-def _masked_cells(x_sorted, cm, k, r, keep):
-    """`masked_single_fork` for C cells at once on shared draws.
-
-    x_sorted: (1 or C, B..., n); cm: (1 or C, B..., n, r_cap), the fresh
-    block already running-min'd over its replica axis; k, r, keep: (C,).
-    Returns (T, C), each (C, B...)."""
-    n = x_sorted.shape[-1]
-    shape = tuple(k.shape[:1]) + tuple(x_sorted.shape[1:])
-    nd = len(shape)
-    xs = x_sorted.expand(shape)
-    kc, rc, keepc = (_cell(v, nd) for v in (k, r, keep))
-    t1 = torch.gather(xs, -1, (kc - 1).long().expand(shape[:-1] + (1,)))[..., 0]
-    straggler = torch.arange(n, device=xs.device, dtype=torch.int32) >= kc
-    c1 = torch.where(straggler, 0.0, xs).sum(dim=-1) + (n - kc[..., 0]) * t1
-    fresh_keep = torch.where(
-        rc > 0, take_replica(cm, torch.clamp(r - 1, min=0), shape), torch.inf
-    )
-    fresh_kill = take_replica(cm, r, shape)  # min over the first r+1 draws
-    remaining = xs - t1[..., None]
-    y = torch.where(keepc, torch.minimum(remaining, fresh_keep), fresh_kill)
-    y = torch.where(straggler, y, 0.0)
-    T = t1 + y.amax(dim=-1)
-    C = (c1 + (rc[..., 0] + 1.0) * y.sum(dim=-1)) / n
-    return T, C
-
-
 def masked_single_fork(x_sorted, fresh, k, r, keep):
     """Single-fork (T, C) with a *dynamic* fork point (Definitions 1–2).
 
@@ -474,11 +452,25 @@ def _chunks(n_cells: int, chunk: int):
         yield slice(i, min(i + chunk, n_cells))
 
 
-def cell_chunk_size(m_trials, n_jobs, n, r_cap, n_stages, general, attempts=None) -> int:
-    """Laws per chunk under `CELL_CHUNK_BYTES`, from the size of the
-    (law, trial, job, task) intermediates of the evaluator that runs."""
+def fused_path(device, n: int, n_stages: int) -> bool:
+    """Whether `cell_tc` evaluates its laws with the single-job kernel
+    (`kernels.single_job`): on a card, where it takes n tasks and n_stages
+    stages (`single_job.fits`), at any group width.  Otherwise the PyTorch
+    chains run (`_masked_cells`, `lowered_eval_cells`)."""
+    return torch.device(device).type == "cuda" and single_job_fits(n, n_stages)
+
+
+def cell_chunk_size(m_trials, n_jobs, n, r_cap, n_stages, general, attempts=None, device="cpu") -> int:
+    """Laws per chunk under `CELL_CHUNK_BYTES`, from what each law of a
+    chunk allocates on the path that evaluates it on `device`
+    (`fused_path`): the (law, trial, job, task) intermediates of the
+    PyTorch chains or, on the single-job kernel, its (T, C); with
+    `attempts`, each law's retry-transformed draws besides."""
+    fused = fused_path(device, n, n_stages if general else 1)
     elems = m_trials * n_jobs * n
-    if general:
+    if fused:
+        per_cell = m_trials * n_jobs * 4 * 2
+    elif general:
         # argsorts and permutations are int64; cohorts grow per stage
         per_cell = elems * (4 * (12 + 4 * n_stages + 2 * r_cap) + 8 * 4)
     else:
@@ -545,28 +537,45 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, la
     one row a distinct single-job law, with modes None for a grid wholly in
     the single-stage-quantile / full-width domain, which takes the
     single-fork evaluator — the host-side program selection of the
-    reference.  `qs` (one per law, with the retry-draw width `attempts`)
-    runs every draw through the geometric-retry transform with its law's q
-    before the evaluator; None takes the fault-free programs.
+    reference — and ts and ds None there.
+    `qs` (one per law, with the retry-draw width `attempts`) runs every
+    draw through the geometric-retry transform with its law's q before the
+    evaluator; None takes the fault-free programs.
     `law_of_cell` (cells,) gives each cell's law (`cell_laws`); None means
     every cell is its own law.  The draws do not depend on the laws; each
-    law is evaluated once on them, `chunk` laws at a time, which changes no
-    result, and each cell takes its law's (T, C).  The frontier draws once
-    per grid; the DAG engine once per stage.  With a recorder enabled it
-    records the sections `evaluator` (args `cells`, `laws`),
-    `evaluator.draws` and one `evaluator.chunk` a chunk (its `cells` are
-    the laws it evaluates), and adds the laws it evaluates to the counter
+    law is evaluated once on them, `chunk` laws at a time (None: as many as
+    `cell_chunk_size` allows), which changes no result, and each cell takes
+    its law's (T, C).  The frontier draws once per grid; the DAG engine
+    once per stage.  On a card, where n and n_stages fit (`fused_path`),
+    each chunk is one launch of the single-job kernel
+    (`kernels.single_job`) on the same draws; elsewhere the chains run.
+    With a recorder enabled it records the sections `evaluator` (args
+    `cells`, `laws`), `evaluator.draws` and one `evaluator.chunk` a chunk
+    (its `cells` are the laws it evaluates, its `path` "fused", "masked" or
+    "lowered"), and adds the laws it evaluates to the counter
     `evaluator.cells`."""
     modes, ks, ts, rs, keeps, ds = pol
     n_laws = ks.shape[0]
+    single = modes is None
+    S = 1 if single else n_stages
+    fused = fused_path(g.device, n, S)
+    if chunk is None:
+        chunk = cell_chunk_size(shape[0], math.prod(shape[1:]), n, r_cap, S, not single,
+                                attempts if qs is not None else None, g.device)
     rec = get_recorder()
     rec.count("evaluator.cells", n_laws)
-    path = "masked" if modes is None else "lowered"
+    if fused:
+        # the single-fork program is one quantile stage at full width
+        stages = (torch.zeros_like(ks)[:, None], ks[:, None], torch.full((n_laws, 1), math.inf, device=ks.device),
+                  rs[:, None], keeps[:, None], torch.full_like(ks, n)) if single else pol
+        path = "fused"
+    else:
+        path = "masked" if single else "lowered"
     n_cells = n_laws if law_of_cell is None else law_of_cell.shape[0]
     with rec.section("evaluator", "engine", cells=n_cells, laws=n_laws):
         with rec.section("evaluator.draws", "engine"):
             if qs is None:
-                if modes is None:
+                if single:
                     x, fresh = fork_draws(g, quantile, shape, n, r_cap)
                 else:
                     x, fresh = policy_draws(g, quantile, shape, n, r_cap, n_stages)
@@ -574,7 +583,7 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, la
                 x = x[None]
                 del fresh
             else:
-                fresh_shape = tuple(shape) + ((n, r_cap) if modes is None else (n_stages, n, r_cap))
+                fresh_shape = tuple(shape) + ((n, r_cap) if single else (n_stages, n, r_cap))
                 xr, xv = retry_draws(g, quantile, tuple(shape) + (n,), attempts)
                 fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
         parts = []
@@ -583,9 +592,12 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, la
                 if qs is not None:
                     x = retry_transform(xr, xv, _cell(qs[sl], xv.ndim + 1))
                     cm = running_min(retry_transform(fr, fv, _cell(qs[sl], fv.ndim + 1)))
-                    if modes is None:
+                    if single and not fused:  # the kernel sorts each law's draws itself
                         x = torch.sort(x, dim=-1).values
-                if modes is None:
+                if fused:
+                    parts.append(single_job(x, cm.unsqueeze(-3) if single else cm, *(v[sl] for v in stages),
+                                            ranked=single and qs is None))
+                elif single:
                     parts.append(_masked_cells(x, cm, ks[sl], rs[sl], keeps[sl]))
                 else:
                     parts.append(
@@ -828,7 +840,7 @@ def _eval_cells(
             pol, qs, law_of_cell = _law_tensors(lowered, cell_qs, general, dev)
             if cell_chunk is None:
                 cell_chunk = cell_chunk_size(
-                    m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None
+                    m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None, dev
                 )
             if rec.enabled:
                 n_laws = pol[1].shape[0]

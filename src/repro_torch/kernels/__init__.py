@@ -2,7 +2,7 @@
 PyTorch versions.
 
 Each kernel module holds the wrapper (`kw_queue`, `residual_sample`,
-`flash_attention`, `ssd_scan`), the plain version it is tested against
+`flash_attention`, `ssd_scan`, `single_job`), the plain version it is tested against
 (`*_plain`) and a launch counter on the wrapper.  The CUDA sources live in `repro_torch/csrc/` and are built at
 first use by `build.load_library` — never at import, so the package imports
 on machines without a card or a CUDA toolkit.  `ops` re-exports the

@@ -119,6 +119,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_hopper_clusters.argtypes = [i, i, i, i]
     lib.ssd_scan_hopper_clusters.restype = i
+    ll = ctypes.c_longlong
+    lib.single_job_launch.argtypes = [p, ll, p, ll, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p, i]
+    lib.single_job_launch.restype = i
 
 
 def load_library() -> ctypes.CDLL:

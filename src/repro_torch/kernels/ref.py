@@ -5,4 +5,5 @@
 from .flash_attention import flash_attention_plain as flash_attention_ref  # noqa: F401
 from .kw_queue import kw_queue_plain as kw_queue_ref  # noqa: F401
 from .residual_sampler import residual_sample_plain as residual_sample_ref  # noqa: F401
+from .single_job import single_job_plain  # noqa: F401
 from .ssd_scan import ssd_scan_plain as ssd_scan_ref  # noqa: F401

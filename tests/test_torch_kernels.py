@@ -578,7 +578,7 @@ def test_residual_sample_is_min_of_replicas_distribution():
 
 def test_build_commands_target_hopper_without_fast_math(tmp_path):
     compiles, link, lib = build.compile_commands("nvcc", tmp_path)
-    assert len(compiles) == len(build.sources()) == 4  # one nvcc per source
+    assert len(compiles) == len(build.sources()) == 5  # one nvcc per source
     for cmd in (*compiles, link):
         assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
         assert not any("fast" in part for part in cmd)
