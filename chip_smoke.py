@@ -485,8 +485,9 @@ SINGLE_CHAIN: list = []
 
 def record_single_job_chain():
     """Wraps `cell_tc` where the engines call it (`fleet.vector`,
-    `dag.rollout`) so that each call on a card that keeps the PyTorch
-    chains (`fused_path` false: n or S beyond the single-job kernel)
+    `dag.rollout`) so that each call on a card whose route is not the
+    single-job kernel (`vector.evaluator_path`, asked with the call's own
+    n, laws' width S and single-fork flag: n or S beyond the kernel)
     appends its (n, S, laws) to SINGLE_CHAIN.  Returns the function that
     unwraps it."""
     from repro_torch.dag import rollout
@@ -494,11 +495,11 @@ def record_single_job_chain():
 
     inner = vector.cell_tc
 
-    def recorded(g, quantile, pol, qs, shape, n, r_cap, n_stages, *args, **kwargs):
-        S = 1 if pol[0] is None else n_stages
-        if g.device.type == "cuda" and not vector.fused_path(g.device, n, S):
-            SINGLE_CHAIN.append((n, S, int(pol[1].shape[0])))
-        return inner(g, quantile, pol, qs, shape, n, r_cap, n_stages, *args, **kwargs)
+    def recorded(g, quantile, pol, qs, shape, n, r_cap, single, *args, **kwargs):
+        laws, S = pol[0].shape
+        if g.device.type == "cuda" and vector.evaluator_path(g.device, n, S, single) != "fused":
+            SINGLE_CHAIN.append((n, S, int(laws)))
+        return inner(g, quantile, pol, qs, shape, n, r_cap, single, *args, **kwargs)
 
     vector.cell_tc = rollout.cell_tc = recorded
 

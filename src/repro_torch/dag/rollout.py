@@ -61,6 +61,7 @@ from ..fleet.vector import (
     _law_tensors,
     cell_tc,
     emp_quantile,
+    single_fork,
 )
 from .graph import JobDAG
 
@@ -88,12 +89,12 @@ def _plan(dag: JobDAG, device):
 def _stage_pols(dag: JobDAG, vecs, device, cell_qs=None):
     """Per stage, what `fleet.vector.cell_tc` takes for the stage's
     distinct laws (`fleet.vector._law_tensors`: pol, qs, law_of_cell) and
-    its inner stage count.  Cell i's policy for a stage and its q
-    (`cell_qs`, the faulty path) make its law there: a stage's rows repeat
-    across λ, and across the vectors that share that stage's policy.
-    All-single-fork grids take the single-fork program in
-    every stage (modes None); a grid with any algebra policy takes the
-    lowered evaluator in every stage, as in the reference."""
+    whether they take the single-fork program.  Cell i's policy for a stage
+    and its q (`cell_qs`, the faulty path) make its law there: a stage's
+    rows repeat across λ, and across the vectors that share that stage's
+    policy.  Only a grid single-fork in every stage (`single_fork`) takes
+    the single-fork program; a grid with any algebra policy in any stage
+    takes the lowered program in every stage, as in the reference."""
     lps = [
         lower_policies([vec[s] for vec in vecs], spec.n_tasks)
         for s, spec in enumerate(dag.stages)
@@ -104,10 +105,8 @@ def _stage_pols(dag: JobDAG, vecs, device, cell_qs=None):
                 f"stage {spec.name!r}: lowered fork indices must lie in [0, n] "
                 "and replica counts >= 0"
             )
-    general = any(lp.multi_stage or lp.has_time or lp.has_group for lp in lps)
-    return [
-        _law_tensors(lp, cell_qs, general, device) + (lp.n_stages if general else 1,) for lp in lps
-    ]
+    single = all(single_fork(lp) for lp in lps)
+    return [_law_tensors(lp, cell_qs, device) + (single,) for lp in lps]
 
 
 def _resolve_r_caps(dag: JobDAG, cell_vectors, r_caps):
@@ -159,9 +158,8 @@ def _compose(g, xss, pols, lams, plan, n_jobs, m_trials, r_caps, kernel, attempt
     readys, starts, finishes, Ts, Cs = [], [], [], [], []
     for s, (n_s, c_s, preds, dist_s) in enumerate(plan):
         quantile = dist_s.quantile if dist_s is not None else partial(emp_quantile, xss[s])
-        pol, qs, law_of_cell, n_stages = pols[s]
-        T_s, C_s = cell_tc(g, quantile, pol, qs, shape, n_s, r_caps[s], n_stages, attempts, None,
-                           law_of_cell)
+        pol, qs, law_of_cell, single = pols[s]
+        T_s, C_s = cell_tc(g, quantile, pol, qs, shape, n_s, r_caps[s], single, attempts, None, law_of_cell)
         if arrivals is None:
             # after the first stage's draws, as the frontier draws them
             arrivals = _arrivals(g, shape)[None] / lams[:, None, None]

@@ -12,11 +12,12 @@ one shared set of common-random-number draws:
 share a law (`cell_laws`), evaluated once on the draws and gathered to its
 cells on the device.
 
-  * `masked_single_fork` evaluates single-fork cells with a dynamic fork
-    point (k, r, keep enter as per-cell tensors, not shapes);
-    `core.simulate.lowered_eval_cells` evaluates any other lowered policy;
-    on a card the engine's laws go through the CUDA kernel
-    `kernels.single_job` instead, where n and S fit it (`fused_path`);
+  * the evaluator takes every grid's laws as their lowered rows
+    (`_law_tensors`); `single_fork` picks the grid's program on the host
+    and `evaluator_path` its route: the CUDA kernel `kernels.single_job`
+    on a card where n and S fit it ("fused"), else the chains,
+    `masked_single_fork`'s ("masked") or `core.simulate.lowered_eval_cells`
+    ("lowered");
   * `batched_queue` runs every (cell, trial) queue: c > 1 (or
     `kernel=True`) through the CUDA Kiefer–Wolfowitz kernel
     `kernels.kw_queue`, c = 1 through the closed-form `lindley`;
@@ -287,6 +288,27 @@ def _arrivals(generator, shape):
     return torch.cumsum(gaps, dim=-1)
 
 
+def _queue_rollout(arrivals, T, C, n, c, classes, kernel) -> VectorFleetResult:
+    """Queue a rollout's already-sampled (trials, jobs) (T, C): c = 1
+    without classes (and without `kernel`) through `lindley`, anything
+    else through `batched_queue` on the slots of (c, classes)."""
+    dev = arrivals.device
+    slot = _slot_arrays(n, c, classes, dev)
+    if slot is None and kernel:
+        slot = _c1_slot_arrays(n, dev)
+    if slot is None:
+        sojourn, wait, util = _queue_stats(arrivals, T, C, n)
+        return VectorFleetResult(sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util)
+    speeds, slot_class, class_slots, names = slot
+    sojourn, wait, T, C, util, slots, class_util = _queue_kw_batch(
+        arrivals, T, C, speeds, slot_class, class_slots, n, kernel=kernel
+    )
+    return VectorFleetResult(
+        sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util, slot=slots,
+        class_utilization=class_util, class_names=names,
+    )
+
+
 def fleet_rollout(
     dist: Distribution,
     policy: SingleForkPolicy,
@@ -315,20 +337,7 @@ def fleet_rollout(
     arrivals = _arrivals(g, (m_trials, n_jobs)) / lam
     s = num_stragglers(n, policy.p)
     T, C = single_fork_batch(g, dist, n, s, policy.r, policy.keep, shape=(m_trials, n_jobs))
-    slot = _slot_arrays(n, c, classes, dev)
-    if slot is None and kernel:
-        slot = _c1_slot_arrays(n, dev)
-    if slot is None:
-        sojourn, wait, util = _queue_stats(arrivals, T, C, n)
-        return VectorFleetResult(sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util)
-    speeds, slot_class, class_slots, names = slot
-    sojourn, wait, T, C, util, slots, class_util = _queue_kw_batch(
-        arrivals, T, C, speeds, slot_class, class_slots, n, kernel=kernel
-    )
-    return VectorFleetResult(
-        sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util, slot=slots,
-        class_utilization=class_util, class_names=names,
-    )
+    return _queue_rollout(arrivals, T, C, n, c, classes, kernel)
 
 
 # --------------------------------------------------------------------------
@@ -452,25 +461,36 @@ def _chunks(n_cells: int, chunk: int):
         yield slice(i, min(i + chunk, n_cells))
 
 
-def fused_path(device, n: int, n_stages: int) -> bool:
-    """Whether `cell_tc` evaluates its laws with the single-job kernel
-    (`kernels.single_job`): on a card, where it takes n tasks and n_stages
-    stages (`single_job.fits`), at any group width.  Otherwise the PyTorch
-    chains run (`_masked_cells`, `lowered_eval_cells`)."""
-    return torch.device(device).type == "cuda" and single_job_fits(n, n_stages)
+def single_fork(lowered) -> bool:
+    """Whether a lowered grid lies wholly in the single-stage-quantile /
+    full-width domain and takes the single-fork program (sorted draws from
+    `fork_draws`), not the lowered one (`policy_draws`): the reference's
+    host-side program selection."""
+    return not (lowered.multi_stage or lowered.has_time or lowered.has_group)
 
 
-def cell_chunk_size(m_trials, n_jobs, n, r_cap, n_stages, general, attempts=None, device="cpu") -> int:
+def evaluator_path(device, n: int, n_stages: int, single: bool) -> str:
+    """`cell_tc`'s route for laws of n tasks and n_stages stages on
+    `device`: "fused" (`kernels.single_job`) on a card where the kernel
+    takes them (`single_job.fits`), at any group width; else the chains,
+    "masked" (`_masked_cells`) for a `single_fork` grid, "lowered"
+    (`lowered_eval_cells`) for any other."""
+    if torch.device(device).type == "cuda" and single_job_fits(n, n_stages):
+        return "fused"
+    return "masked" if single else "lowered"
+
+
+def cell_chunk_size(m_trials, n_jobs, n, r_cap, n_stages, single, attempts=None, device="cpu") -> int:
     """Laws per chunk under `CELL_CHUNK_BYTES`, from what each law of a
-    chunk allocates on the path that evaluates it on `device`
-    (`fused_path`): the (law, trial, job, task) intermediates of the
-    PyTorch chains or, on the single-job kernel, its (T, C); with
-    `attempts`, each law's retry-transformed draws besides."""
-    fused = fused_path(device, n, n_stages if general else 1)
+    chunk allocates on its route on `device` (`evaluator_path`): on the
+    single-job kernel its (T, C), on the chains their (law, trial, job,
+    task) intermediates; with `attempts`, each law's retry-transformed
+    draws besides."""
+    path = evaluator_path(device, n, n_stages, single)
     elems = m_trials * n_jobs * n
-    if fused:
+    if path == "fused":
         per_cell = m_trials * n_jobs * 4 * 2
-    elif general:
+    elif path == "lowered":
         # argsorts and permutations are int64; cohorts grow per stage
         per_cell = elems * (4 * (12 + 4 * n_stages + 2 * r_cap) + 8 * 4)
     else:
@@ -529,15 +549,14 @@ def _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel
     return torch.cat([base, class_util], dim=1), soj, cost
 
 
-def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, law_of_cell=None):
+def cell_tc(g, quantile, pol, qs, shape, n, r_cap, single, attempts, chunk, law_of_cell=None):
     """Single-job (T, C) of every cell, each (cells, *shape), on ONE shared
     draw set taken from the generator `g` (the reference's per-cell vmap).
 
-    `pol` is (modes, ks, ts, rs, keeps, ds) of lowered (laws, S) tensors,
-    one row a distinct single-job law, with modes None for a grid wholly in
-    the single-stage-quantile / full-width domain, which takes the
-    single-fork evaluator — the host-side program selection of the
-    reference — and ts and ds None there.
+    `pol` is (modes, ks, ts, rs, keeps, ds), the lowered rows of the
+    distinct single-job laws (`_law_tensors`): (laws, S) each, ds (laws,).
+    `single` (`single_fork`, decided on the host) takes the single-fork
+    program: sorted draws, and of each law its stage 0's (k, r, keep).
     `qs` (one per law, with the retry-draw width `attempts`) runs every
     draw through the geometric-retry transform with its law's q before the
     evaluator; None takes the fault-free programs.
@@ -546,31 +565,21 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, la
     law is evaluated once on them, `chunk` laws at a time (None: as many as
     `cell_chunk_size` allows), which changes no result, and each cell takes
     its law's (T, C).  The frontier draws once per grid; the DAG engine
-    once per stage.  On a card, where n and n_stages fit (`fused_path`),
-    each chunk is one launch of the single-job kernel
+    once per stage.  `evaluator_path` gives the route: on a card, where n
+    and S fit, each chunk is one launch of the single-job kernel
     (`kernels.single_job`) on the same draws; elsewhere the chains run.
     With a recorder enabled it records the sections `evaluator` (args
     `cells`, `laws`), `evaluator.draws` and one `evaluator.chunk` a chunk
-    (its `cells` are the laws it evaluates, its `path` "fused", "masked" or
-    "lowered"), and adds the laws it evaluates to the counter
-    `evaluator.cells`."""
-    modes, ks, ts, rs, keeps, ds = pol
-    n_laws = ks.shape[0]
-    single = modes is None
-    S = 1 if single else n_stages
-    fused = fused_path(g.device, n, S)
+    (its `cells` are the laws it evaluates, its `path` the route), and adds
+    the laws it evaluates to the counter `evaluator.cells`."""
+    modes, ks, _, rs, keeps, _ = pol
+    n_laws, S = modes.shape
+    path = evaluator_path(g.device, n, S, single)
     if chunk is None:
-        chunk = cell_chunk_size(shape[0], math.prod(shape[1:]), n, r_cap, S, not single,
+        chunk = cell_chunk_size(shape[0], math.prod(shape[1:]), n, r_cap, S, single,
                                 attempts if qs is not None else None, g.device)
     rec = get_recorder()
     rec.count("evaluator.cells", n_laws)
-    if fused:
-        # the single-fork program is one quantile stage at full width
-        stages = (torch.zeros_like(ks)[:, None], ks[:, None], torch.full((n_laws, 1), math.inf, device=ks.device),
-                  rs[:, None], keeps[:, None], torch.full_like(ks, n)) if single else pol
-        path = "fused"
-    else:
-        path = "masked" if single else "lowered"
     n_cells = n_laws if law_of_cell is None else law_of_cell.shape[0]
     with rec.section("evaluator", "engine", cells=n_cells, laws=n_laws):
         with rec.section("evaluator.draws", "engine"):
@@ -578,12 +587,12 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, la
                 if single:
                     x, fresh = fork_draws(g, quantile, shape, n, r_cap)
                 else:
-                    x, fresh = policy_draws(g, quantile, shape, n, r_cap, n_stages)
+                    x, fresh = policy_draws(g, quantile, shape, n, r_cap, S)
                 cm = running_min(fresh)[None]
                 x = x[None]
                 del fresh
             else:
-                fresh_shape = tuple(shape) + ((n, r_cap) if single else (n_stages, n, r_cap))
+                fresh_shape = tuple(shape) + ((n, r_cap) if single else (S, n, r_cap))
                 xr, xv = retry_draws(g, quantile, tuple(shape) + (n,), attempts)
                 fr, fv = retry_draws(g, quantile, fresh_shape, attempts)
         parts = []
@@ -592,17 +601,15 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, la
                 if qs is not None:
                     x = retry_transform(xr, xv, _cell(qs[sl], xv.ndim + 1))
                     cm = running_min(retry_transform(fr, fv, _cell(qs[sl], fv.ndim + 1)))
-                    if single and not fused:  # the kernel sorts each law's draws itself
+                    if path == "masked":  # the chain needs sorted draws; the kernel sorts each law's own
                         x = torch.sort(x, dim=-1).values
-                if fused:
-                    parts.append(single_job(x, cm.unsqueeze(-3) if single else cm, *(v[sl] for v in stages),
+                if path == "fused":  # the single-fork draws have no stage axis
+                    parts.append(single_job(x, cm.unsqueeze(-3) if single else cm, *(v[sl] for v in pol),
                                             ranked=single and qs is None))
-                elif single:
-                    parts.append(_masked_cells(x, cm, ks[sl], rs[sl], keeps[sl]))
+                elif path == "masked":
+                    parts.append(_masked_cells(x, cm, ks[sl, 0], rs[sl, 0], keeps[sl, 0]))
                 else:
-                    parts.append(
-                        lowered_eval_cells(x, cm, modes[sl], ks[sl], ts[sl], rs[sl], keeps[sl], ds[sl])
-                    )
+                    parts.append(lowered_eval_cells(x, cm, *(v[sl] for v in pol)))
         T, C = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
         if law_of_cell is not None:
             T, C = T.index_select(0, law_of_cell), C.index_select(0, law_of_cell)
@@ -611,7 +618,7 @@ def cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, la
 
 def _frontier_cells(
     g, xs, pol, lams, qs, law_of_cell, speeds, slot_class, class_slots, dist, n, n_jobs, m_trials,
-    r_cap, n_stages, attempts, kernel, chunk,
+    r_cap, single, attempts, kernel, chunk,
 ):
     """Every (policy, λ [, q]) cell on one shared set of draws (the
     reference's `_frontier_jit`, or `_frontier_faulty_jit` when `qs` is
@@ -620,7 +627,7 @@ def _frontier_cells(
     sojourns and costs where they lie."""
     quantile = dist.quantile if dist is not None else partial(emp_quantile, xs)
     shape = (m_trials, n_jobs)
-    T, C = cell_tc(g, quantile, pol, qs, shape, n, r_cap, n_stages, attempts, chunk, law_of_cell)
+    T, C = cell_tc(g, quantile, pol, qs, shape, n, r_cap, single, attempts, chunk, law_of_cell)
     with get_recorder().section("stats", "engine"):
         arrivals = _arrivals(g, shape)[None] / lams[:, None, None]
         stats, soj, cost = _cell_stats(arrivals, T, C, lams, speeds, slot_class, class_slots, n, kernel)
@@ -738,10 +745,9 @@ def cell_laws(lowered, cell_qs=None):
     return first[order], rank[inverse.reshape(-1)]
 
 
-def _law_tensors(lowered, cell_qs, general, device):
+def _law_tensors(lowered, cell_qs, device):
     """What `cell_tc` takes for a grid's distinct laws (`cell_laws`):
-    (pol, qs, law_of_cell) on `device`.  `pol` holds the lowered rows of the
-    laws (the single-fork program's (k, r, keep) columns unless `general`),
+    (pol, qs, law_of_cell) on `device`.  `pol` holds the laws' lowered rows,
     `qs` each law's q (None off the faulty path), `law_of_cell` each cell's
     law (None where no law repeats)."""
     reps, law_of_cell = cell_laws(lowered, cell_qs)
@@ -749,10 +755,7 @@ def _law_tensors(lowered, cell_qs, general, device):
     def t(v):
         return torch.as_tensor(v, device=device)
 
-    if general:
-        pol = tuple(t(v[reps]) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
-    else:
-        pol = (None, t(lowered.k[reps, 0]), None, t(lowered.r[reps, 0]), t(lowered.keep[reps, 0]), None)
+    pol = tuple(t(v[reps]) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
     qs = None
     if cell_qs is not None:
         qs = torch.tensor([float(cell_qs[i]) for i in reps], dtype=torch.float32, device=device)
@@ -833,14 +836,12 @@ def _eval_cells(
                     raise ValueError("need one q per cell")
                 if attempts is None or attempts < 1:
                     raise ValueError("cell_qs needs attempts >= 1")
-            # grids wholly in the single-stage-quantile/full-width domain take the
-            # single-fork evaluator; anything else the general lowered evaluator
-            general = lowered.multi_stage or lowered.has_time or lowered.has_group
+            single = single_fork(lowered)
             # each distinct (T, C) law is evaluated once; cells take theirs
-            pol, qs, law_of_cell = _law_tensors(lowered, cell_qs, general, dev)
+            pol, qs, law_of_cell = _law_tensors(lowered, cell_qs, dev)
             if cell_chunk is None:
                 cell_chunk = cell_chunk_size(
-                    m_trials, n_jobs, n, r_cap, lowered.n_stages, general, attempts if cell_qs else None, dev
+                    m_trials, n_jobs, n, r_cap, lowered.n_stages, single, attempts if cell_qs else None, dev
                 )
             if rec.enabled:
                 n_laws = pol[1].shape[0]
@@ -849,7 +850,7 @@ def _eval_cells(
                 rec.count("evaluator.laws", n_laws)
         stats, soj, cost = _frontier_cells(
             _generator(seed, dev), xs, pol, lams, qs, law_of_cell, speeds, slot_class, class_slots, dist,
-            n, n_jobs, m_trials, r_cap, lowered.n_stages, attempts, kernel, cell_chunk,
+            n, n_jobs, m_trials, r_cap, single, attempts, kernel, cell_chunk,
         )
         with rec.section("tails", "engine"):
             pcts, cost_pcts, cell_evt = _tail_keys(soj, cost, hist)
@@ -1134,17 +1135,4 @@ def trace_kill_rollout(
         C = ((c1 + (r + 1) * sum_y) / n).reshape(m_trials, n_jobs)
 
     arrivals = _arrivals(g, (m_trials, n_jobs)) / lam
-    slot = _slot_arrays(n, c, classes, dev)
-    if slot is None and kernel:
-        slot = _c1_slot_arrays(n, dev)
-    if slot is None:
-        sojourn, wait, util = _queue_stats(arrivals, T, C, n)
-        return VectorFleetResult(sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util)
-    speeds, slot_class, class_slots, names = slot
-    sojourn, wait, T, C, util, slots, class_util = _queue_kw_batch(
-        arrivals, T, C, speeds, slot_class, class_slots, n, kernel=kernel
-    )
-    return VectorFleetResult(
-        sojourn=sojourn, wait=wait, service=T, cost=C, utilization=util, slot=slots,
-        class_utilization=class_util, class_names=names,
-    )
+    return _queue_rollout(arrivals, T, C, n, c, classes, kernel)

@@ -209,7 +209,7 @@ def test_cell_chunk_size_changes_no_result(kind):
     whole = vector._eval_cells(*args, device=CPU, **kw)
     one_by_one = vector._eval_cells(*args, device=CPU, cell_chunk=1, **kw)
     assert whole == one_by_one
-    assert vector.cell_chunk_size(8, 100, N, 2, 1, kind == "general") >= len(cells)
+    assert vector.cell_chunk_size(8, 100, N, 2, 1, kind != "general") >= len(cells)
 
 
 LAMS4 = (0.05, 0.1, 0.15, 0.2)
@@ -267,11 +267,9 @@ def test_cell_laws_key_the_lowered_rows_and_q_in_order_of_first_appearance():
     assert reps.tolist() == [0, 1, 3] and law_of_cell.tolist() == [0, 1, 0, 2]
 
 
-def _law_pol(lowered, rows, general):
+def _law_pol(lowered, rows):
     t = torch.as_tensor
-    if general:
-        return tuple(t(v[rows]) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
-    return (None, t(lowered.k[rows, 0]), None, t(lowered.r[rows, 0]), t(lowered.keep[rows, 0]), None)
+    return tuple(t(v[rows]) for v in (lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d))
 
 
 @pytest.mark.parametrize("general", [False, True])
@@ -287,8 +285,8 @@ def test_cell_tc_gives_each_cell_its_laws_tc(general):
 
     def call(rows, index):
         g = torch.Generator().manual_seed(11)
-        return vector.cell_tc(g, DIST.quantile, _law_pol(lowered, rows, general), None, (4, 50), N,
-                              lowered.r_max + 1, lowered.n_stages if general else 1, None, 2, index)
+        return vector.cell_tc(g, DIST.quantile, _law_pol(lowered, rows), None, (4, 50), N,
+                              lowered.r_max + 1, not general, None, 2, index)
 
     T, C = call(reps, torch.as_tensor(law_of_cell))
     T_laws, C_laws = call(reps, None)

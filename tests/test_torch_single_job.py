@@ -1,6 +1,6 @@
 """The single-job evaluator's kernel (`repro_torch.kernels.single_job`).
 
-On the CPU: the engine's choice of path (`fleet.vector.fused_path`), the
+On the CPU: the engine's route (`fleet.vector.evaluator_path`), the
 chunk size on the kernel's path, the CPU path's sections and its (T, C),
 which are the chains' own, the wrapper's checks, and the kernel's
 algorithm written out in numpy (`_twin`: stage 0's order once a row, the
@@ -273,47 +273,61 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(fault):
         sj.single_job(x, cm, mode, k, t, r, keep, d, ranked=ranked)
 
 
-@pytest.mark.parametrize("device, n, n_stages, fused", [
-    ("cuda", 1026, 1, True), ("cuda", 1026, 2, True), ("cuda", 16, 2, True), ("cuda", sj.MAX_TASKS, 4, True),
-    ("cuda", sj.MAX_TASKS, sj.MAX_STAGES, True), ("cpu", 1026, 1, False), ("cpu", 16, 2, False),
-    ("cuda", sj.MAX_TASKS + 1, 1, False), ("cuda", 16, sj.MAX_STAGES + 1, False),
+@pytest.mark.parametrize("device, n, n_stages, path", [
+    ("cuda", 1026, 1, "fused"), ("cuda", 1026, 2, "fused"), ("cuda", 16, 2, "fused"),
+    ("cuda", sj.MAX_TASKS, 4, "fused"), ("cuda", sj.MAX_TASKS, sj.MAX_STAGES, "fused"), ("cpu", 1026, 1, "masked"),
+    ("cpu", 16, 2, "lowered"), ("cuda", sj.MAX_TASKS + 1, 1, "masked"), ("cuda", 16, sj.MAX_STAGES + 1, "lowered"),
 ])
-def test_the_engine_takes_the_kernel_from_device_width_n_and_stages(device, n, n_stages, fused):
-    """The device, n and S choose the path; the laws' group widths do not
-    (the kernel takes d < n)."""
-    assert vector.fused_path(torch.device(device), n, n_stages) is fused
+def test_the_engine_takes_the_kernel_from_device_width_n_and_stages(device, n, n_stages, path):
+    """The device, n and S choose the kernel; the laws' group widths do not
+    (the kernel takes d < n).  Off the kernel, a single-fork grid (here the
+    one-stage ones) takes the masked chain, any other the lowered one."""
+    assert vector.evaluator_path(torch.device(device), n, n_stages, n_stages == 1) == path
 
 
 def test_the_chunk_on_the_kernels_path_counts_only_its_outputs():
     m, J, n = 16, 2048, 1026
     cuda = torch.device("cuda")
-    whole = vector.cell_chunk_size(m, J, n, 3, 1, False, device=cuda)
+    whole = vector.cell_chunk_size(m, J, n, 3, 1, True, device=cuda)
     assert whole == vector.CELL_CHUNK_BYTES // (m * J * 8) >= 16384
-    assert vector.cell_chunk_size(m, J, n, 2, 2, True, device=cuda) == whole
+    assert vector.cell_chunk_size(m, J, n, 2, 2, False, device=cuda) == whole
     # the faulty path: each law's retry-transformed draws besides
-    faulty = vector.cell_chunk_size(m, J, n, 2, 2, True, attempts=3, device=cuda)
+    faulty = vector.cell_chunk_size(m, J, n, 2, 2, False, attempts=3, device=cuda)
     assert faulty == vector.CELL_CHUNK_BYTES // (m * J * 8 + m * J * n * 4 * 3 * (1 + 2 * 2))
     # the chains' intermediates are larger: fewer laws a chunk, on the CPU
     # and where n is beyond the kernel
-    assert vector.cell_chunk_size(m, J, n, 3, 1, False) < whole
-    assert vector.cell_chunk_size(m, J, sj.MAX_TASKS + 1, 3, 1, False, device=cuda) < whole
+    assert vector.cell_chunk_size(m, J, n, 3, 1, True) < whole
+    assert vector.cell_chunk_size(m, J, sj.MAX_TASKS + 1, 3, 1, True, device=cuda) < whole
 
 
 X = np.random.default_rng(0).exponential(1.0, 400) + 1.0
 
 
-@pytest.mark.parametrize("grid", ["single", "general", "group"])
+@pytest.mark.parametrize("grid", ["single", "general", "group", "dag_mixed"])
 def test_the_cpu_keeps_the_chains_and_counts_no_fused_law(grid):
-    pols = {"single": FRONTIER, "general": GENERAL,
-            "group": GENERAL[:2] + [tcore.group_replication(0.25, 1, 4)]}[grid]
+    """On the CPU every chunk runs a chain.  A DAG whose reduce stage holds
+    an algebra policy takes the lowered chain in every stage, its
+    single-fork map stage too (`dag.rollout._stage_pols`)."""
     rec = obs.enable(obs.Recorder())
     try:
-        vector.frontier(X, pols, (0.1, 0.2), 40, 16, m_trials=2, c=2, device="cpu")
+        if grid == "dag_mixed":
+            from repro_torch import dag as tdag
+
+            mr = tdag.JobDAG.map_reduce(8, 4, tcore.ShiftedExp(1.0, 1.0), tcore.ShiftedExp(0.5, 2.0), c_map=2)
+            vecs = [(FRONTIER[3], GENERAL[1]), (FRONTIER[6], GENERAL[2])]
+            tdag.dag_frontier(mr, vecs, (0.1, 0.2), 16, m_trials=2, device="cpu")
+            laws, evaluators = 2 * len(vecs), 2
+        else:
+            pols = {"single": FRONTIER, "general": GENERAL,
+                    "group": GENERAL[:2] + [tcore.group_replication(0.25, 1, 4)]}[grid]
+            vector.frontier(X, pols, (0.1, 0.2), 40, 16, m_trials=2, c=2, device="cpu")
+            laws, evaluators = len(pols), 1
     finally:
         obs.disable()
     chunks = rec.spans_named("evaluator.chunk")
+    assert len(rec.spans_named("evaluator")) == evaluators
     assert chunks and {s.args["path"] for s in chunks} == {"masked" if grid == "single" else "lowered"}
-    assert sum(s.args["cells"] for s in chunks) == rec.counters["evaluator.cells"] == len(pols)
+    assert sum(s.args["cells"] for s in chunks) == rec.counters["evaluator.cells"] == laws
 
 
 @pytest.mark.parametrize("grid", ["single", "general", "group"])
@@ -325,22 +339,22 @@ def test_a_frontier_querys_tc_on_the_cpu_is_the_chains(grid):
             "group": GENERAL[:2] + [tcore.group_replication(0.25, 1, 4)]}[grid]
     n, shape = 40, (2, 24)
     lowered = tcore.lower_policies(pols, n)
-    general = grid != "single"
-    pol, _, _ = vector._law_tensors(lowered, None, general, torch.device("cpu"))
-    assert (pol[5] is None) is (grid == "single")
+    single = vector.single_fork(lowered)
+    assert single is (grid == "single")
+    pol, _, _ = vector._law_tensors(lowered, None, torch.device("cpu"))
+    assert all(torch.equal(v, torch.as_tensor(w)) for v, w in zip(pol, (
+        lowered.mode, lowered.k, lowered.t, lowered.r, lowered.keep, lowered.d)))
     quantile = vector.as_quantile_source(X, "cpu")[1]
     q = lambda u: vector.emp_quantile(quantile, u)  # noqa: E731
     r_cap = lowered.r_max + 1
-    S = lowered.n_stages if general else 1
-    T, C = vector.cell_tc(torch.Generator().manual_seed(3), q, pol, None, shape, n, r_cap, S, None, 2)
+    T, C = vector.cell_tc(torch.Generator().manual_seed(3), q, pol, None, shape, n, r_cap, single, None, 2)
     g = torch.Generator().manual_seed(3)
-    if general:
-        x, fresh = policy_draws(g, q, shape, n, r_cap, S)
-        assert torch.equal(pol[5], torch.as_tensor(lowered.d))
-        want = lowered_eval_cells(x[None], running_min(fresh)[None], *pol)
-    else:
+    if single:
         x, fresh = vector.fork_draws(g, q, shape, n, r_cap)
-        want = vector._masked_cells(x[None], running_min(fresh)[None], pol[1], pol[3], pol[4])
+        want = vector._masked_cells(x[None], running_min(fresh)[None], pol[1][:, 0], pol[3][:, 0], pol[4][:, 0])
+    else:
+        x, fresh = policy_draws(g, q, shape, n, r_cap, lowered.n_stages)
+        want = lowered_eval_cells(x[None], running_min(fresh)[None], *pol)
     assert torch.equal(T, want[0]) and torch.equal(C, want[1])
 
 
